@@ -14,14 +14,11 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     BK7Model,
     HenyeyGreensteinPhaseFunction,
     Material,
@@ -29,13 +26,12 @@ from theia_tpu.material import (
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import SphereTargetGuide
-from theia_tpu.trace import SceneForwardTracer
-
-ASSETS = "/root/reference/assets"
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import SphereTargetGuide
+from theia_jax.trace import SceneForwardTracer
 
 
 class WaterModel(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -59,7 +55,7 @@ def main() -> None:
             Material("det_water", None, water, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     light_pos, det_pos = (3.0, 0.0, 0.0), (0.0, 3.0, 0.0)
     scene = Scene(
         [

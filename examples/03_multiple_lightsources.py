@@ -15,27 +15,24 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import (
+import theia_jax.units as u
+from theia_jax.light import (
     ConeLightSource,
     SphericalLightSource,
     UniformWavelengthSource,
 )
-from theia_tpu.material import (
+from theia_jax.material import (
     HenyeyGreensteinPhaseFunction,
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.pipeline import Pipeline, PipelineScheduler
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import SphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.pipeline import Pipeline, PipelineScheduler
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import SphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 class WaterModel(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):

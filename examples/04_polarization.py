@@ -14,18 +14,15 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-from theia_tpu.light import PencilLightSource, UniformWavelengthSource
-from theia_tpu.material import DispersionFreeMedium, Material, MaterialStore
-from theia_tpu.mesh import Mesh
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HitRecorder
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.trace import SceneForwardTracer
+from theia_jax.light import PencilLightSource, UniformWavelengthSource
+from theia_jax.material import DispersionFreeMedium, Material, MaterialStore
+from theia_jax.mesh import Mesh
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HitRecorder
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.trace import SceneForwardTracer
 
 N_WATER, N_GLASS = 4.0 / 3.0, 1.5
 

@@ -16,25 +16,23 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax import compile_cache
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     HenyeyGreensteinPhaseFunction,
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import SphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import SphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 class WaterModel(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -77,7 +75,7 @@ def main() -> None:
         delta = (curve(log_scale) - observed) / (observed.sum() + 1.0)
         return jnp.sum(delta * delta) * 1e6
 
-    grad = jax.jit(jax.value_and_grad(loss))
+    grad = compile_cache.jit(jax.value_and_grad(loss))
     x, m, v = 0.0, 0.0, 0.0  # start at scale 1.0; Adam state
     b1, b2 = 0.9, 0.999
     for step in range(1, 16):

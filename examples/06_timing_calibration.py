@@ -15,20 +15,18 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
 
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import KernelHistogramHitResponse
-from theia_tpu.target import SphereTarget
-from theia_tpu.testing import WaterTestModel
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax import compile_cache
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import KernelHistogramHitResponse
+from theia_jax.target import SphereTarget
+from theia_jax.testing import WaterTestModel
+from theia_jax.trace import VolumeForwardTracer
 
 
 def main() -> None:
@@ -63,7 +61,7 @@ def main() -> None:
         d = (curve(x) - observed) / (observed.sum() + 1.0)
         return jnp.sum(d * d) * 1e6
 
-    grad = jax.jit(jax.value_and_grad(loss))
+    grad = compile_cache.jit(jax.value_and_grad(loss))
     x, m, v = 0.0, 0.0, 0.0
     b1, b2 = 0.9, 0.999
     for step in range(1, 13):

@@ -14,28 +14,24 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.render import SceneRender
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.testing import WaterTestModel
-
-ASSETS = "/root/reference/assets"
+from theia_jax.material import Material, MaterialStore
+from theia_jax.render import SceneRender
+from theia_jax.mesh import icosphere, lobed_sphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.testing import WaterTestModel
 
 
 def main() -> None:
     medium = WaterTestModel().createMedium()
     store = MaterialStore.pack([Material("m", medium, None, flags="DB")])
     meshes = MeshStore(
-        {"sphere": f"{ASSETS}/sphere.stl", "suzanne": f"{ASSETS}/suzanne.stl"}
+        {"sphere": icosphere(), "lobed": lobed_sphere()}
     )
     scene = Scene(
         [
-            meshes.createInstance("suzanne", "m", Transform.TRS(scale=1.0)),
+            meshes.createInstance("lobed", "m", Transform.TRS(scale=1.0)),
             meshes.createInstance(
                 "sphere", "m",
                 Transform.TRS(scale=0.4, translate=(1.6, 0.0, 0.6)),

@@ -4,7 +4,7 @@ two-level instanced acceleration.
 The domain's production scenario: many copies of one detector-module
 mesh stamped across a lattice (here 3x3x3 BK7-shelled spheres in
 scattering water) with a flash in the middle. ``accel="auto"`` picks
-the two-level instanced traversal (``Scene`` docs / PERF.md): each
+the two-level instanced traversal (``Scene`` docs): each
 photon wavefront lane tests the 27 module bounding boxes, then scans
 only its candidate modules' shared prototype mesh — cost stays
 near-constant as the array grows, where a flattened scan grows
@@ -23,14 +23,11 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     BK7Model,
     HenyeyGreensteinPhaseFunction,
     Material,
@@ -38,13 +35,12 @@ from theia_tpu.material import (
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.render import SceneTemplate
-from theia_tpu.response import HitRecorder
-from theia_tpu.scene import MeshStore, Transform
-from theia_tpu.trace import SceneForwardTracer
-
-ASSETS = "/root/reference/assets"
+from theia_jax.random import PhiloxRNG
+from theia_jax.render import SceneTemplate
+from theia_jax.response import HitRecorder
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Transform
+from theia_jax.trace import SceneForwardTracer
 
 
 class Water(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -65,7 +61,7 @@ def main() -> None:
         ]
     )
 
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance(
         "sphere", "det_shell", Transform.TRS(scale=0.35 * u.m)
     )

@@ -25,29 +25,27 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import jax.numpy as jnp
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import KernelHistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.testing import WaterTestModel
-from theia_tpu.trace import SceneForwardTracer
+import theia_jax.units as u
+from theia_jax import compile_cache
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import Material, MaterialStore
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import KernelHistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.testing import WaterTestModel
+from theia_jax.trace import SceneForwardTracer
 
-ASSETS = "/root/reference/assets"
 TRUE_POS = jnp.array([0.3, -0.2, 0.1], jnp.float32)
 
 
 def main() -> None:
     medium = WaterTestModel(mu_a=0.01, mu_s=0.05, g=0.6).createMedium()
     mats = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     insts = [
         meshes.createInstance(
             "sphere",
@@ -93,7 +91,7 @@ def main() -> None:
         c = curves(pos)
         return jnp.sum((c - observed) ** 2) / jnp.sum(observed**2)
 
-    value_and_grad = jax.jit(jax.value_and_grad(loss))
+    value_and_grad = compile_cache.jit(jax.value_and_grad(loss))
     pos = jnp.zeros(3, jnp.float32)  # start at the array center
     print(f"start {np.asarray(pos).round(3)}  (true {np.asarray(TRUE_POS)})")
     for it in range(12):

@@ -23,22 +23,20 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import jax.numpy as jnp
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import KernelHistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.testing import WaterTestModel
-from theia_tpu.trace import SceneForwardTracer
+import theia_jax.units as u
+from theia_jax import compile_cache
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import Material, MaterialStore
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import KernelHistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.testing import WaterTestModel
+from theia_jax.trace import SceneForwardTracer
 
-ASSETS = "/root/reference/assets"
 # module 0 is actually displaced by this much from its nominal position.
 # The reparameterized gradient captures how existing hit lanes' arrival
 # times and transmittances move, but not lanes entering/leaving the
@@ -50,7 +48,7 @@ TRUE_OFFSET = jnp.array([0.12, -0.08, 0.05], jnp.float32)
 def main() -> None:
     medium = WaterTestModel(mu_a=0.01, mu_s=0.04, g=0.5).createMedium()
     mats = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     # a small string of 3 modules; module 0 is the suspect
     insts = [
         meshes.createInstance(
@@ -97,7 +95,7 @@ def main() -> None:
             acc = acc + jnp.sum((c - obs) ** 2) / jnp.sum(obs**2)
         return acc
 
-    value_and_grad = jax.jit(jax.value_and_grad(loss))
+    value_and_grad = compile_cache.jit(jax.value_and_grad(loss))
     offset = jnp.zeros(3, jnp.float32)  # start at nominal
     print(f"start {np.asarray(offset).round(3)}  (true {np.asarray(TRUE_OFFSET)})")
     # fixed RNG streams make the loss deterministic; Adam handles the

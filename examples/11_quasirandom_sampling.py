@@ -15,9 +15,8 @@ each one's across-replicate variance:
   blocks of ONE scramble are variance-reduced parts of a single
   estimate, not replicates).
 
-On the full benchmark workload the measured equal-error speedup is ~11x
-(tools/bench_sobol_effective.py, PERF.md round 5); this small CPU
-configuration shows a smaller but still decisive win.
+tools/bench_sobol_effective.py prices the win on the full benchmark
+workload; this small configuration shows a decisive win too.
 
 Run: python examples/11_quasirandom_sampling.py
 """
@@ -28,22 +27,19 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import jax
-
-jax.config.update("jax_platforms", "cpu")  # or leave unset on TPU
-
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG, SobolQRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG, SobolQRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):

@@ -21,14 +21,14 @@ pid, nproc, port, out = (
 
 sys.path.insert(0, __file__.rsplit("/", 2)[0])
 
-# join the runtime BEFORE importing theia_tpu (whose import may touch the
+# join the runtime BEFORE importing theia_jax (whose import may touch the
 # XLA backend; jax.distributed.initialize must run first)
 jax.distributed.initialize(
     f"localhost:{port}", num_processes=nproc, process_id=pid
 )
 assert jax.device_count() == 2 * nproc, jax.device_count()
 
-from theia_tpu.parallel import shard_trace_multihost
+from theia_jax.parallel import shard_trace_multihost
 
 from tests.test_multihost import build_tracer
 

@@ -11,22 +11,23 @@ slightly inside the mesh (faces are chords) to avoid media mismatches."""
 import numpy as np
 import pytest
 
-import theia_tpu.units as u
-from theia_tpu.camera import SphereCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.camera import SphereCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     Material,
     MaterialStore,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace.backward import VolumeBackwardTracer
-from theia_tpu.trace.bidirectional import BidirectionalPathTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace.backward import VolumeBackwardTracer
+from theia_jax.trace.bidirectional import BidirectionalPathTracer
 
 POS = (12.0, 15.0, 0.2)
 RADIUS = 100.0
@@ -84,7 +85,7 @@ def test_bdpt_covers_multiscatter():
     # the detector sphere as absorbing scene geometry
     mat = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     sph = meshes.createInstance("sphere", "det", Transform.TRS(scale=RADIUS, translate=POS))
     scene = Scene([sph], store, medium="water")
 
@@ -115,7 +116,7 @@ def test_bdpt_smoke():
     medium = Model().createMedium()
     mat = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     sph = meshes.createInstance("sphere", "det", Transform.TRS(scale=RADIUS, translate=POS))
     scene = Scene([sph], store, medium="water")
     tr = BidirectionalPathTracer(
@@ -146,7 +147,7 @@ def test_bdpt_polarized_scalar_invariance():
     medium = Model().createMedium()
     mat = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     sph = meshes.createInstance(
         "sphere", "det", Transform.TRS(scale=RADIUS, translate=POS)
     )

@@ -6,17 +6,15 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from theia_tpu.mesh import loadMesh
-from theia_tpu.native import BVH, build_bvh, native_available
-from theia_tpu.ops.bvh_traverse import nearest_triangle_bvh, pack_bvh
+from theia_jax.mesh import icosphere, lobed_sphere
+from theia_jax.native import BVH, build_bvh, native_available
+from theia_jax.ops.bvh_traverse import nearest_triangle_bvh, pack_bvh
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 
-ASSETS = "/root/reference/assets"
-
 
 def sphere_tris():
-    m = loadMesh(f"{ASSETS}/sphere.stl")
+    m = icosphere()
     pos = m.vertices[:, :3]
     idx = m.indices
     v0 = pos[idx[:, 0]]
@@ -69,17 +67,17 @@ def test_builder_native_matches_numpy():
 
 
 def test_traversal_matches_bruteforce():
-    from theia_tpu.accel import _nearest_triangle
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.scene import MeshStore, Scene, Transform
+    from theia_jax.accel import _nearest_triangle
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.scene import MeshStore, Scene, Transform
 
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl", "suzanne": f"{ASSETS}/suzanne.stl"})
+    meshes = MeshStore({"sphere": icosphere(), "lobed": lobed_sphere()})
     insts = [
         meshes.createInstance("sphere", "m", Transform.TRS(scale=2.0)),
         meshes.createInstance(
-            "suzanne", "m", Transform.TRS(scale=1.0, translate=(4.0, 0.0, 0.0))
+            "lobed", "m", Transform.TRS(scale=1.0, translate=(4.0, 0.0, 0.0))
         ),
     ]
     scene = Scene(insts, store, medium=None)
@@ -110,19 +108,19 @@ def test_traversal_matches_bruteforce():
 
 def test_scene_bvh_accel_end_to_end():
     """Ground-truth energy test with the BVH accel backend."""
-    import theia_tpu.units as u
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HitRecorder
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace.scene import SceneForwardTracer
+    import theia_jax.units as u
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HitRecorder
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace.scene import SceneForwardTracer
 
     medium = WaterTestModel(mu_a=0.0, mu_s=0.005, g=0.0).createMedium()
     mat = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "det", Transform.TRS(scale=100.0, translate=(12.0, 15.0, 0.2))
     )
@@ -153,11 +151,11 @@ def test_scene_bvh_accel_end_to_end():
 
 def test_accel_auto_selects_by_scene_shape():
     """accel='auto': brute for small scenes, the two-level instanced
-    traversal once instancing meaningfully shrinks per-candidate work
-    (crossover measured in PERF.md round 2); explicit accel= overrides."""
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.render import SceneTemplate
-    from theia_tpu.scene import (
+    traversal once instancing meaningfully shrinks per-candidate work;
+    explicit accel= overrides."""
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.render import SceneTemplate
+    from theia_jax.scene import (
         AUTO_INSTANCED_THRESHOLD,
         MeshStore,
         Scene,
@@ -166,7 +164,7 @@ def test_accel_auto_selects_by_scene_shape():
 
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance("sphere", "m", Transform.TRS(scale=0.4))
     template = SceneTemplate([proto])
 
@@ -196,14 +194,14 @@ def test_accel_auto_selects_by_scene_shape():
 def test_stamped_array_bvh_matches_brute():
     """Detector-array scene (template stamping): BVH and brute agree on
     nearest hits — the large-scene parity leg of the crossover story."""
-    from theia_tpu.accel import _nearest_triangle
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.render import SceneTemplate
-    from theia_tpu.scene import MeshStore, Transform
+    from theia_jax.accel import _nearest_triangle
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.render import SceneTemplate
+    from theia_jax.scene import MeshStore, Transform
 
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance("sphere", "m", Transform.TRS(scale=0.4))
     template = SceneTemplate([proto])
     transforms = [
@@ -228,3 +226,15 @@ def test_stamped_array_bvh_matches_brute():
     assert (hit_b == (i_v >= 0)).mean() > 0.999
     both = hit_b & (i_v >= 0)
     assert np.allclose(t_b[both], t_v[both], rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("accel", ["mt", "woop", "pallas"])
+def test_unknown_accel_raises(accel):
+    """Only the brute, bvh and instanced backends (and auto) exist."""
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.scene import MeshStore, Scene
+
+    store = MaterialStore.pack([Material("m", None, None, flags="B")])
+    inst = MeshStore({"sphere": icosphere()}).createInstance("sphere", "m")
+    with pytest.raises(ValueError, match="accel must be"):
+        Scene([inst], store, accel=accel)

@@ -1,5 +1,5 @@
 """Per-camera analytic correctness tests at reference depth
-(model: /root/reference/tests/test_camera.py).
+(modelled on the reference's tests/test_camera.py).
 
 Each camera's ray mode (``sample_ray``) and direct mode (``sample_point`` +
 ``ray_from_point``) are validated against the closed-form contributions and
@@ -12,15 +12,15 @@ import pytest
 import numpy as np
 import jax.numpy as jnp
 
-from theia_tpu.camera import (
+from theia_jax.camera import (
     ConeCamera,
     FlatCamera,
     PencilCamera,
     PointCamera,
     SphereCamera,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.testing import sampleCameraPoint, sampleCameraRay
+from theia_jax.random import PhiloxRNG
+from theia_jax.testing import sampleCameraPoint, sampleCameraRay
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 

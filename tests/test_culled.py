@@ -16,14 +16,13 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import theia_tpu.accel as accel
-from theia_tpu.accel import intersect_scene, intersect_target, is_visible
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.scene import MeshStore, Scene, Transform
+import theia_jax.accel as accel
+from theia_jax.accel import intersect_scene, intersect_target, is_visible
+from theia_jax.material import Material, MaterialStore
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
 
 pytestmark = pytest.mark.core
-
-ASSETS = "/root/reference/assets"
 
 
 def multi_scene(cull=True, detector=True):
@@ -34,7 +33,7 @@ def multi_scene(cull=True, detector=True):
             Material("det", None, None, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     insts = [
         meshes.createInstance(
             "sphere", "wall", Transform.TRS(scale=0.8, translate=(3.0, 0, 0))
@@ -151,7 +150,7 @@ def array_scene(cull=True):
             Material("det", None, None, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     det_pos = [
         (0.0, 3.0, 0.0),
         (3.0, 3.0, 0.0),

@@ -6,14 +6,14 @@ without polarization."""
 import numpy as np
 import pytest
 
-from theia_tpu.callback import EventStatisticCallback
-from theia_tpu.light import PencilLightSource, UniformWavelengthSource
-from theia_tpu.material import DispersionFreeMedium, Material, MaterialStore
-from theia_tpu.mesh import Mesh
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.trace import SceneForwardTracer
+from theia_jax.callback import EventStatisticCallback
+from theia_jax.light import PencilLightSource, UniformWavelengthSource
+from theia_jax.material import DispersionFreeMedium, Material, MaterialStore
+from theia_jax.mesh import Mesh
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.trace import SceneForwardTracer
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 
@@ -108,7 +108,7 @@ def test_media_mismatch_counted_and_kills_path():
     """A ray believing the wrong medium dies with ERROR_MEDIA_MISMATCH and
     the statistic callback counts it (reference: scene.intersect.glsl:77-80,
     callback.stat.glsl mismatch counter)."""
-    from theia_tpu.material import DispersionFreeMedium
+    from theia_jax.material import DispersionFreeMedium
 
     # interface whose *outside* medium (glass) disagrees with the scene
     # medium (water) the ray travels in

@@ -1,9 +1,8 @@
 """Differentiability of the *scene* tracers w.r.t. medium parameters.
 
-Extends tests/test_grad_volume.py to the scene path (VERDICT round-1
-item 9): gradients must flow through the packed media tables consumed by
+Extends tests/test_grad_volume.py to the scene path: gradients must flow through the packed media tables consumed by
 ``SceneForwardTracer`` — attenuation (mu_a/mu_s), and the Fresnel/IOR
-path (``_fresnel``, theia_tpu/trace/scene.py) including the selection
+path (``_fresnel``, theia_jax/trace/scene.py) including the selection
 score corrections and the backward eta^2 radiance factor
 (reference semantics: shader/scatter.surface.glsl:21-51,
 shader/ray.surface.glsl transmitRayIS backward).
@@ -25,23 +24,23 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.camera import PointCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.camera import PointCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     Material,
     MaterialStore,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.trace.scene import SceneForwardTracer
-from theia_tpu.trace.scene_backward import SceneBackwardTargetTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.trace.scene import SceneForwardTracer
+from theia_jax.trace.scene_backward import SceneBackwardTargetTracer
 
-ASSETS = "/root/reference/assets"
 N_BINS = 50
 BIN_SIZE = 25.0
 
@@ -76,7 +75,7 @@ def build_forward_tracer(batch=8 * 1024):
     medium = model.createMedium()
     material = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([material])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     trafo = Transform.TRS(scale=100.0, translate=(0.0, 0.0, 0.0))
     inst = meshes.createInstance("sphere", "det", trafo, detectorId=0)
     scene = Scene([inst], store, medium="homogenous")
@@ -155,7 +154,7 @@ def build_fresnel_tracer(batch=16 * 1024):
     medium = model.createMedium()
     material = Material("det", medium, None, flags="D")
     store = MaterialStore.pack([material])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "det", Transform.TRS(scale=60.0), detectorId=0
     )
@@ -207,7 +206,7 @@ def test_grad_backward_eta2_statistical():
     shell = Material("shell", glass, None)
     emit = Material("emit", None, None, flags="LB")
     store = MaterialStore.pack([shell, emit])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     ball = meshes.createInstance("sphere", "shell", Transform.TRS(scale=1.0))
     wall = meshes.createInstance("sphere", "emit", Transform.TRS(scale=10.0))
     scene = Scene([ball, wall], store, medium=None)
@@ -249,17 +248,17 @@ def test_arrival_time_gradient_wrt_source_position():
     import jax
     import jax.numpy as jnp
 
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import KernelHistogramHitResponse
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import SceneForwardTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import KernelHistogramHitResponse
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import SceneForwardTracer
 
     medium = WaterTestModel(mu_a=0.01, mu_s=0.02, g=0.3).createMedium()
     mats = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     insts = [
         meshes.createInstance(
             "sphere", "det",
@@ -309,15 +308,15 @@ def test_backward_geometry_gradient_through_bounce():
     sphere immersed in scattering water; the glass leg of every path is a
     geometric hit distance, so d(light curve)/d(camera x) via AD must be
     FD-consistent."""
-    from theia_tpu.response import KernelHistogramHitResponse
-    from theia_tpu.trace.scene_backward import SceneBackwardTracer
+    from theia_jax.response import KernelHistogramHitResponse
+    from theia_jax.trace.scene_backward import SceneBackwardTracer
 
     glass = DispersionFreeMedium(n=1.8, ng=1.8, mu_a=0.0, mu_s=0.0).createMedium(
         name="glass"
     )
     water = Model(0.005, 0.05, 0.3).createMedium(name="water")
     mats = MaterialStore.pack([Material("glass_water", glass, water, flags="T")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "glass_water", Transform.TRS(scale=3.0)
     )
@@ -363,16 +362,16 @@ def test_detector_position_gradient():
     ScenePack.translate_instance must be finite and FD-consistent — the
     flip side of the source-position gradient (geometry arrays are traced
     params; hit reconstruction + reattachment carry the derivative)."""
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import KernelHistogramHitResponse
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import SceneForwardTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import KernelHistogramHitResponse
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import SceneForwardTracer
 
     medium = WaterTestModel(mu_a=0.01, mu_s=0.02, g=0.3).createMedium()
     mats = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "det", Transform.TRS(scale=0.5, translate=(3.0, 0.0, 0.0)),
         detectorId=0,

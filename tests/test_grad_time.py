@@ -12,12 +12,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import KernelHistogramHitResponse
-from theia_tpu.target import SphereTarget
-from theia_tpu.testing import WaterTestModel
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import KernelHistogramHitResponse
+from theia_jax.target import SphereTarget
+from theia_jax.testing import WaterTestModel
+from theia_jax.trace import VolumeForwardTracer
 
 
 def test_group_velocity_time_gradient():

@@ -13,23 +13,22 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.scene import (
+from theia_jax.material import Material, MaterialStore
+from theia_jax.mesh import Mesh, icosphere, lobed_sphere
+from theia_jax.scene import (
     AUTO_INSTANCED_THRESHOLD,
     MeshStore,
     Scene,
     Transform,
 )
 
-ASSETS = "/root/reference/assets"
-
 
 def array_scene(n=3, accel="instanced", mixed=False):
-    """n^3 grid of instanced spheres (plus a suzanne when mixed)."""
+    """n^3 grid of instanced spheres (plus a lobed sphere when mixed)."""
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
     meshes = MeshStore(
-        {"sphere": f"{ASSETS}/sphere.stl", "suzanne": f"{ASSETS}/suzanne.stl"}
+        {"sphere": icosphere(), "lobed": lobed_sphere()}
     )
     insts = [
         meshes.createInstance(
@@ -44,7 +43,7 @@ def array_scene(n=3, accel="instanced", mixed=False):
     if mixed:
         insts.append(
             meshes.createInstance(
-                "suzanne", "m", Transform.TRS(translate=(-3.0, 0.0, 0.0))
+                "lobed", "m", Transform.TRS(translate=(-3.0, 0.0, 0.0))
             )
         )
     return Scene(insts, store, medium=None, accel=accel)
@@ -59,7 +58,7 @@ def random_rays(n, lo=-4.0, hi=7.0, seed=0):
 
 @pytest.mark.parametrize("mixed", [False, True])
 def test_matches_bruteforce(mixed):
-    from theia_tpu.accel import _nearest, _nearest_triangle
+    from theia_jax.accel import _nearest, _nearest_triangle
 
     scene = array_scene(3, "instanced", mixed=mixed)
     assert scene.pack.instanced is not None
@@ -79,7 +78,7 @@ def test_matches_bruteforce(mixed):
 
 
 def test_respects_t_max():
-    from theia_tpu.accel import _nearest
+    from theia_jax.accel import _nearest
 
     scene = array_scene(2, "instanced")
     o, d = random_rays(2048, seed=3)
@@ -108,13 +107,13 @@ def test_end_to_end_energy():
     end-to-end test): absorbing spheres around a source — every photon
     either escapes through gaps or is detected; detected fraction must
     match the brute-backend run exactly on identical RNG streams."""
-    import theia_tpu.units as u
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import Material as M, MaterialStore as MS
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace.scene import SceneForwardTracer
+    import theia_jax.units as u
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import Material as M, MaterialStore as MS
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace.scene import SceneForwardTracer
 
     def run(accel):
         medium = WaterTestModel(mu_a=0.0, mu_s=0.02, g=0.0).createMedium()
@@ -122,7 +121,7 @@ def test_end_to_end_energy():
         # *outside* medium of the detector shells
         mat = M("det", None, medium, flags="DB")
         store = MS.pack([mat])
-        meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+        meshes = MeshStore({"sphere": icosphere()})
         insts = [
             meshes.createInstance(
                 "sphere",
@@ -159,7 +158,7 @@ def test_end_to_end_energy():
 def test_gradient_through_instanced():
     """jax.grad through a scene trace with the while_loop-based backend:
     selection is stop_gradiented, winner t recomputed differentiably."""
-    from theia_tpu.accel import intersect_scene
+    from theia_jax.accel import intersect_scene
 
     scene = array_scene(2, "instanced")
     pack = scene.pack
@@ -184,12 +183,12 @@ def test_gradient_through_instanced():
 def test_auto_bvh_fallback_for_huge_noninstanced(monkeypatch):
     """auto must still route huge NON-instanced scenes to the BVH (the
     instanced path would brute-scan the giant prototype per candidate)."""
-    import theia_tpu.scene as scene_mod
+    import theia_jax.scene as scene_mod
 
     monkeypatch.setattr(scene_mod, "AUTO_BVH_THRESHOLD", 1000)
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})  # 1280 tris
+    meshes = MeshStore({"sphere": icosphere()})  # 1280 tris
     one = [meshes.createInstance("sphere", "m", Transform.TRS(scale=0.4))]
     scene = Scene(one, store, medium=None)
     assert scene.accel == "bvh" and scene.pack.bvh is not None
@@ -209,11 +208,11 @@ def test_matches_bruteforce_extreme_scales(scale):
     """The scale-normalized prototype keeps the object-space degeneracy
     epsilon equivalent to the brute scan's world-space one even for
     instances far from unit scale."""
-    from theia_tpu.accel import _nearest, _nearest_triangle
+    from theia_jax.accel import _nearest, _nearest_triangle
 
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     insts = [
         meshes.createInstance(
             "sphere",
@@ -241,8 +240,8 @@ def test_matches_bruteforce_extreme_scales(scale):
 def test_any_hit_occlusion_matches_nearest():
     """is_visible's any-hit fast paths (instanced, brute scan, BVH) must
     agree with ground-truth visibility from the brute nearest-hit query."""
-    from theia_tpu.accel import _nearest_triangle, is_visible
-    from theia_tpu.ops.math3d import dot
+    from theia_jax.accel import _nearest_triangle, is_visible
+    from theia_jax.ops.math3d import dot
 
     scene_b = array_scene(3, "brute")
     ks = jax.random.split(jax.random.PRNGKey(21), 2)
@@ -275,11 +274,11 @@ def test_any_hit_occlusion_matches_nearest():
     ],
 )
 def test_midwalk_compaction_bit_identical(ladder, monkeypatch):
-    """The compaction ladder (PERF.md round 5) is bit-identical to the
+    """The compaction ladder is bit-identical to the
     plain while_loop walk in every branch: disabled, the staged
     compacted continuation, and the capacity-overflow fallback."""
-    import theia_tpu.ops.instanced as inst
-    from theia_tpu.ops.instanced import nearest_triangle_instanced
+    import theia_jax.ops.instanced as inst
+    from theia_jax.ops.instanced import nearest_triangle_instanced
 
     scene = array_scene(3, "instanced", mixed=True)
     pack = scene.pack.instanced
@@ -304,13 +303,13 @@ def test_midwalk_compaction_bit_identical(ladder, monkeypatch):
 
 
 def test_sphere_pretest_gate_and_bit_identity(monkeypatch):
-    """The bounding-sphere candidate pretest (PERF.md round 5) packs
+    """The bounding-sphere candidate pretest packs
     spheres only for sphere-like prototypes (tightness gate) and never
-    changes results: a sphere-module group packs them, a suzanne group
+    changes results: a sphere-module group packs them, a box group
     (box-filling mesh) does not, and forcing the pretest off is
     bit-identical on a sphere-packed scene."""
-    import theia_tpu.ops.instanced as inst
-    from theia_tpu.ops.instanced import nearest_triangle_instanced
+    import theia_jax.ops.instanced as inst
+    from theia_jax.ops.instanced import nearest_triangle_instanced
 
     scene = array_scene(3, "instanced", mixed=True)
     groups = scene.pack.instanced.groups
@@ -321,7 +320,12 @@ def test_sphere_pretest_gate_and_bit_identity(monkeypatch):
     # a cube fills its AABB: bounding sphere == circumsphere -> no pack
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"cube": f"{ASSETS}/cube.ply"})
+    corners = np.array(list(np.ndindex(2, 2, 2)), np.float64) - 0.5
+    box_faces = [
+        (0, 1, 3), (0, 3, 2), (4, 6, 7), (4, 7, 5), (0, 4, 5), (0, 5, 1),
+        (2, 3, 7), (2, 7, 6), (0, 2, 6), (0, 6, 4), (1, 5, 7), (1, 7, 3),
+    ]
+    meshes = MeshStore({"cube": Mesh.from_geometry(corners, box_faces)})
     cubes = [
         meshes.createInstance(
             "cube", "m", Transform.TRS(translate=(3.0 * i, 0.0, 0.0))
@@ -363,10 +367,9 @@ def test_sphere_pretest_gate_and_bit_identity(monkeypatch):
 
 def test_ladder_selection_by_group_size(monkeypatch):
     """Groups at/above LADDER_LARGE_MIN_BOXES use the deeper ladder;
-    smaller ones the default — both bit-identical to the plain walk
-    (the A/B that set the defaults: PERF.md round 5 cont.)."""
-    import theia_tpu.ops.instanced as inst
-    from theia_tpu.ops.instanced import nearest_triangle_instanced
+    smaller ones the default — both bit-identical to the plain walk."""
+    import theia_jax.ops.instanced as inst
+    from theia_jax.ops.instanced import nearest_triangle_instanced
 
     scene = array_scene(3, "instanced")
     pack = scene.pack.instanced
@@ -401,11 +404,18 @@ def test_sphere_pretest_anisotropic_and_grazing():
     instances (ellipsoids: the bound comes from transformed world
     vertices, not the object-space sphere) and for rays grazing the
     module surface — both compared against the brute scan."""
-    from theia_tpu.accel import _nearest, _nearest_triangle
+    from theia_jax.accel import _nearest, _nearest_triangle
 
     mat = Material("m", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    # a generic rotation keeps the icosphere's edges out of the axis
+    # planes the grazing bundle travels in (an edge-on ray has two
+    # equally valid winners)
+    sphere = icosphere()
+    pos = Transform.Rotation(1.0, 2.0, 3.0, 37.0).apply(sphere.vertices[:, :3])
+    sphere = Mesh.from_geometry(pos, sphere.indices)
+    top = pos[np.argmax(pos[:, 1])]  # the module's topmost vertex
+    meshes = MeshStore({"sphere": sphere})
     insts = [
         meshes.createInstance(
             "sphere",
@@ -423,17 +433,17 @@ def test_sphere_pretest_anisotropic_and_grazing():
         g.sph is not None for g in scene.pack.instanced.groups
     )  # ellipsoid world bounds are still sphere-tight enough to pack
 
-    # grazing bundle: rays in +x aimed at the topmost surface point of
-    # each module (y = cy + 0.15*r_mesh), offset by tiny +-eps around it
+    # grazing bundle: rays in +x aimed at the topmost vertex of each
+    # module (y = cy + 0.15*y_top, z = 0.7*z_top), offset by tiny +-eps
     eps = np.float32([0.0, -1e-5, 1e-5, -1e-4, 1e-4, -1e-3, 1e-3])
     ys = []
     for j in range(3):
-        ys.extend(2.0 * j + 0.15 * 0.967 + eps)  # sphere.stl max |y|~0.967
+        ys.extend(2.0 * j + 0.15 * top[1] + eps)
     o = np.stack(
         [
             np.full(len(ys), -1.0, np.float32),
             np.asarray(ys, np.float32),
-            np.zeros(len(ys), np.float32),
+            np.full(len(ys), 0.7 * top[2], np.float32),
         ],
         axis=1,
     )
@@ -456,12 +466,12 @@ def test_sphere_pretest_anisotropic_and_grazing():
 
 def test_query_profile_disables_ladder_for_primary(monkeypatch):
     """Guide-less (pure-primary) traces skip the compaction ladder via
-    the trace-time query_profile contextvar (PERF.md round 5 cont.:
-    the ladder measured 0.84x on photon-mode arrays); the default MIS
+    the trace-time query_profile contextvar (the ladder does not pay on
+    photon-mode arrays); the default MIS
     profile engages it. Pinned by poisoning the front-pack helper."""
-    import theia_tpu.accel as accel_mod
-    import theia_tpu.ops.instanced as inst
-    from theia_tpu.ops.instanced import (
+    import theia_jax.accel as accel_mod
+    import theia_jax.ops.instanced as inst
+    from theia_jax.ops.instanced import (
         nearest_triangle_instanced,
         query_profile,
     )
@@ -486,18 +496,18 @@ def test_photon_tracer_traces_under_primary_profile():
     """ScenePhotonTracer's monolithic AND ladder-chunk programs trace
     with the ladder disabled (photon mode is always guide-less), and
     produce finite histograms on an instanced array scene."""
-    import theia_tpu.accel as accel_mod
-    import theia_tpu.units as u
+    import theia_jax.accel as accel_mod
+    import theia_jax.units as u
     from unittest import mock
 
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.trace.photon import ScenePhotonTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.trace.photon import ScenePhotonTracer
 
     mat = Material("det", None, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     insts = [
         meshes.createInstance(
             "sphere",
@@ -522,7 +532,7 @@ def test_photon_tracer_traces_under_primary_profile():
         nRuns=2,
         targetId=-1,
     )
-    import theia_tpu.ops.instanced as inst
+    import theia_jax.ops.instanced as inst
 
     with mock.patch.object(inst, "COMPACT_MIN_BOXES", 1), mock.patch.object(
         accel_mod,

@@ -13,14 +13,14 @@ lightsource.cherenkov.simple.glsl backward branch).
 
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import (
+import theia_jax.units as u
+from theia_jax.light import (
     CherenkovLightSource,
     ConeLightSource,
     SphericalLightSource,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.testing import WaterTestModel, sampleBackwardLight
+from theia_jax.random import PhiloxRNG
+from theia_jax.testing import WaterTestModel, sampleBackwardLight
 
 N = 4096
 
@@ -201,7 +201,7 @@ def test_cherenkov_track_backward(rng):
     Total contrib must equal the sum of the per-segment analytic
     candidates (numpy oracle), the returned candidate must be one of them,
     and selection frequencies must follow the contributions."""
-    from theia_tpu.light import CherenkovTrackLightSource, ParticleTrack
+    from theia_jax.light import CherenkovTrackLightSource, ParticleTrack
 
     # bent track: two segments at an angle, beta = 1 timing
     verts = np.array(
@@ -252,7 +252,7 @@ def test_cherenkov_track_backward(rng):
         mean, var = p0.sum(), (p0 * (1 - p0)).sum()
         assert abs(took0.sum() - mean) < 5 * np.sqrt(var) + 1.0
     # straight-line degenerate track must reproduce the simple source
-    from theia_tpu.light import CherenkovLightSource
+    from theia_jax.light import CherenkovLightSource
 
     straight = np.array(
         [

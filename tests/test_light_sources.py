@@ -9,15 +9,15 @@ from scipy.stats import gamma as gamma_dist, kstest
 import jax
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.cascades import (
+import theia_jax.units as u
+from theia_jax.cascades import (
     EMinus,
     Particle,
     ParticleType,
     createCascadeParameters,
     createParamsFromParticle,
 )
-from theia_tpu.light import (
+from theia_jax.light import (
     CherenkovLightSource,
     CherenkovTrackLightSource,
     ConeLightSource,
@@ -31,9 +31,9 @@ from theia_tpu.light import (
     _sample_emission_angle,
     frankTamm,
 )
-from theia_tpu.material import MediumConstants
-from theia_tpu.ops.gamma import sample_gamma
-from theia_tpu.random import PhiloxRNG
+from theia_jax.material import MediumConstants
+from theia_jax.ops.gamma import sample_gamma
+from theia_jax.random import PhiloxRNG
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 

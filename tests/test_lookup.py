@@ -6,7 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from theia_tpu.lookup import lookup, lookup2d, lookup_dx, sample_table1d
+from theia_jax.lookup import lookup, lookup2d, lookup_dx, sample_table1d
 
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
@@ -74,7 +74,7 @@ def test_sample_table2d_reference_axis_order_and_hull_fill():
     data's convex hull by nearest neighbor instead of baking NaN."""
     import warnings as _warnings
 
-    from theia_tpu.lookup import sample_table2d
+    from theia_jax.lookup import sample_table2d
 
     x = np.array([0.0, 0.0, 10.0, 10.0])
     y = np.array([0.0, 10.0, 0.0, 10.0])

@@ -9,8 +9,8 @@ import numpy as np
 import pytest
 from scipy.integrate import quad
 
-import theia_tpu.units as u
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.material import (
     BK7Model,
     DispersionFreeMedium,
     FournierForandPhaseFunction,
@@ -54,7 +54,7 @@ def test_bk7_model():
     assert np.abs((vg_exp - model.group_velocity(l)) / vg_exp).max() < 1e-3
 
     trans = np.loadtxt(
-        Path(__file__).parents[1] / "theia_tpu/data/bk7_transmission.csv",
+        Path(__file__).parents[1] / "theia_jax/data/bk7_transmission.csv",
         delimiter=",",
         skiprows=2,
     )
@@ -76,7 +76,7 @@ def test_water_model():
     assert np.abs((vg_exp - model.group_velocity(l)) / vg_exp).max() < 5e-3
 
     smith = np.loadtxt(
-        Path(__file__).parents[1] / "theia_tpu/data/water_smith81.csv",
+        Path(__file__).parents[1] / "theia_jax/data/water_smith81.csv",
         delimiter=",",
         skiprows=2,
     )
@@ -219,12 +219,12 @@ def test_material_store_and_zip_roundtrip(tmp_path):
 
 
 def test_load_materials_validates_schema(tmp_path):
-    """loadMaterials jsonschema-validates material.json and rejects
-    dangling medium references (reference material.py:697-712, 855-869)."""
+    """loadMaterials validates material.json against its schema and
+    rejects dangling medium references (reference material.py:697-712,
+    855-869)."""
     import json
     from zipfile import ZipFile
 
-    import jsonschema
     import pytest
 
     water = WaterPhaseModel().createMedium(num_lambda=8, num_theta=8)
@@ -242,7 +242,7 @@ def test_load_materials_validates_schema(tmp_path):
     # malformed entry: missing required key
     bad = tmp_path / "bad_schema.zip"
     rewrite(good, bad, [{"name": "det", "inside": "water"}])
-    with pytest.raises(jsonschema.ValidationError):
+    with pytest.raises(ValueError, match="missing keys"):
         loadMaterials(bad)
     # skipValidation bypasses the schema check (reference parity) but the
     # missing keys then surface as a KeyError downstream
@@ -279,3 +279,35 @@ def test_load_materials_validates_schema(tmp_path):
     rewrite(good, dup, [entry, entry])
     with pytest.raises(ValueError, match="duplicate"):
         loadMaterials(dup)
+
+
+_ENTRY = {
+    "name": "det",
+    "inside": "water",
+    "outside": None,
+    "flagsInward": 3,
+    "flagsOutward": 0.0,
+}
+
+
+@pytest.mark.parametrize(
+    "entries,match",
+    [
+        ({"det": _ENTRY}, "list of materials"),
+        (["det"], "not an object"),
+        ([{**_ENTRY, "color": "red"}], "unknown keys"),
+        ([{**_ENTRY, "name": 7}], "'name' has type int"),
+        ([{**_ENTRY, "outside": 1.0}], "'outside' has type float"),
+        ([{**_ENTRY, "flagsInward": True}], "'flagsInward' has type bool"),
+        ([{**_ENTRY, "flagsOutward": -1}], "negative flags"),
+    ],
+    ids=["not_list", "not_object", "extra_key", "name_type", "medium_type",
+         "bool_flags", "negative_flags"],
+)
+def test_material_json_schema_rejects(entries, match):
+    """The schema check alone, case by case (a valid entry passes)."""
+    from theia_jax.material import _validate_entries
+
+    _validate_entries([_ENTRY, dict(_ENTRY, name="other", inside=None)])
+    with pytest.raises(ValueError, match=match):
+        _validate_entries(entries)

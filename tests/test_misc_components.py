@@ -4,13 +4,13 @@ import numpy as np
 
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.camera import SphereCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.render import SceneRender, SceneTemplate
-from theia_tpu.response import (
+import theia_jax.units as u
+from theia_jax.camera import SphereCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import Material, MaterialStore
+from theia_jax.random import PhiloxRNG
+from theia_jax.render import SceneRender, SceneTemplate
+from theia_jax.response import (
     HistogramEstimator,
     HistogramHitResponse,
     HitRecorder,
@@ -19,18 +19,17 @@ from theia_tpu.response import (
     replay_hits,
     sample_camera_hits,
 )
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import InnerSphereTarget, SphereTarget
-from theia_tpu.testing import (
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import InnerSphereTarget, SphereTarget
+from theia_jax.testing import (
     WaterTestModel,
     sampleCameraRay,
     sampleLight,
     sampleTarget,
     sampleWavelength,
 )
-from theia_tpu.trace import VolumeForwardTracer
-
-ASSETS = "/root/reference/assets"
+from theia_jax.trace import VolumeForwardTracer
 
 
 def test_samplers_shapes():
@@ -110,7 +109,7 @@ def test_sample_camera_hits():
 def test_scene_render():
     mat = Material("white", None, None, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "white", Transform.TRS(scale=1.0, translate=(0.0, 5.0, 0.0))
     )
@@ -133,7 +132,7 @@ def test_scene_render():
 def test_scene_template_stamping():
     mat = Material("det", None, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance("sphere", "det", scale=0.5)
     template = SceneTemplate([proto])
     transforms = [
@@ -161,11 +160,11 @@ def test_mesh_camera():
     draws integrates cos over the hemisphere -> pi * totalArea, i.e.
     mean(contrib) -> pi * totalArea (reference estimator semantics)."""
     import numpy as np
-    from theia_tpu.camera import MeshCamera
-    from theia_tpu.scene import MeshStore, Transform
-    from theia_tpu.testing import sampleCameraRay, sampleCameraPoint
+    from theia_jax.camera import MeshCamera
+    from theia_jax.scene import MeshStore, Transform
+    from theia_jax.testing import sampleCameraRay, sampleCameraPoint
 
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "mat", Transform.TRS(scale=2.0, translate=(1.0, -2.0, 0.5))
     )
@@ -207,13 +206,13 @@ def test_polarized_track_record():
     frames (reference: TRACK_POLARIZED, trace.py:189-305)."""
     import numpy as np
 
-    from theia_tpu.callback import TrackRecordCallback
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.target import SphereTarget
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import VolumeForwardTracer
+    from theia_jax.callback import TrackRecordCallback
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.target import SphereTarget
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import VolumeForwardTracer
 
     cb = TrackRecordCallback(polarized=True)
     tr = VolumeForwardTracer(
@@ -246,10 +245,10 @@ def test_hit_recorder_overflow_counter():
 
     import jax.numpy as jnp
 
-    from theia_tpu.component import TraceConfig
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HitRecorder
-    from theia_tpu.trace.core import HitItem
+    from theia_jax.component import TraceConfig
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HitRecorder
+    from theia_jax.trace.core import HitItem
 
     n = 64
     rec = HitRecorder()
@@ -284,7 +283,7 @@ def test_profiling_helpers(tmp_path):
     """profile_batch produces an XLA trace dump + sane timing stats."""
     import os
 
-    from theia_tpu.profiling import batch_timings, profile_batch
+    from theia_jax.profiling import batch_timings, profile_batch
     from tests.test_pipeline import build
 
     tracer = build(batch=1024)
@@ -307,10 +306,10 @@ def test_histogram_per_detector_axis():
     plain histogram restricted to valid ids."""
     import jax.numpy as jnp
 
-    from theia_tpu.component import TraceConfig
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.trace.core import HitItem
+    from theia_jax.component import TraceConfig
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.trace.core import HitItem
 
     n = 256
     rng = np.random.default_rng(5)
@@ -357,9 +356,9 @@ def test_store_time_acceptance_probability():
     accepted records keep the hit's time/objectId."""
     import jax.numpy as jnp
 
-    from theia_tpu.component import TraceConfig
-    from theia_tpu.response import CustomValueResponse, StoreTimeHitResponse
-    from theia_tpu.trace.core import HitItem
+    from theia_jax.component import TraceConfig
+    from theia_jax.response import CustomValueResponse, StoreTimeHitResponse
+    from theia_jax.trace.core import HitItem
 
     n = 16 * 1024
     p_accept = 0.37
@@ -382,7 +381,7 @@ def test_store_time_acceptance_probability():
         time=time, contrib=jnp.ones(n, jnp.float32), object_id=ids,
     )
     def _rng_state(key):
-        from theia_tpu.random import PhiloxRNG, RNGState
+        from theia_jax.random import PhiloxRNG, RNGState
 
         return RNGState(
             key=PhiloxRNG(key=key).key_words,
@@ -420,15 +419,15 @@ def test_store_time_acceptance_probability():
 
 
 def test_task_module_alias():
-    """`theia_tpu.task` (the reference's module name) is importable in all
+    """`theia_jax.task` (the reference's module name) is importable in all
     forms and resolves to the pipeline implementations."""
     import importlib
 
-    import theia_tpu
-    import theia_tpu.task as task_mod
-    from theia_tpu.task import ConvergeHistogramTask
+    import theia_jax
+    import theia_jax.task as task_mod
+    from theia_jax.task import ConvergeHistogramTask
 
     assert task_mod.ConvergeHistogramTask is ConvergeHistogramTask
-    assert theia_tpu.task.ConvergeHistogramTask is ConvergeHistogramTask
-    pipeline = importlib.import_module("theia_tpu.pipeline")
+    assert theia_jax.task.ConvergeHistogramTask is ConvergeHistogramTask
+    pipeline = importlib.import_module("theia_jax.pipeline")
     assert ConvergeHistogramTask is pipeline.ConvergeHistogramTask

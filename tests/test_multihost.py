@@ -23,12 +23,12 @@ def build_tracer():
     """Deterministic tracer both the test and the workers rebuild —
     'scene build host-0 + broadcast' becomes 'every process builds the
     same tables' (SURVEY §7)."""
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.target import SphereTarget
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import VolumeForwardTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.target import SphereTarget
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import VolumeForwardTracer
 
     return VolumeForwardTracer(
         BATCH,

@@ -12,19 +12,19 @@ import pytest
 
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.camera import SphereCamera
-from theia_tpu.light import MuonTrackLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.camera import SphereCamera
+from theia_jax.light import MuonTrackLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import SphereTarget
-from theia_tpu.trace import VolumeForwardTracer
-from theia_tpu.trace.direct import DirectLightTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import SphereTarget
+from theia_jax.trace import VolumeForwardTracer
+from theia_jax.trace.direct import DirectLightTracer
 
 
 class Absorber(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -64,8 +64,8 @@ def test_muon_supports_backward():
 def test_muon_backward_finite_and_on_track():
     """Sampled backward rays start on the track segment, point at the
     observer, and carry finite positive contribution."""
-    from theia_tpu.material import medium_constants
-    from theia_tpu.random import RNGState
+    from theia_jax.material import medium_constants
+    from theia_jax.random import RNGState
 
     src = _muon()
     medium = Absorber().createMedium()
@@ -106,7 +106,7 @@ def test_muon_backward_matches_forward_curve():
     camera of radius -R around the track sees every photon at near-normal
     incidence (cos ~= 1 for R >> track length), so the backward estimate
     must match forward InnerSphereTarget crossings bin by bin."""
-    from theia_tpu.target import InnerSphereTarget
+    from theia_jax.target import InnerSphereTarget
 
     medium = Absorber(mu_a=0.01).createMedium()
     R = 50.0

@@ -5,10 +5,10 @@ graph; here Wavefront OBJ carries the same name/material metadata)."""
 import numpy as np
 import pytest
 
-from theia_tpu.material import Material, MaterialStore
-from theia_tpu.mesh import loadMesh, loadObjScene
-from theia_tpu.render import SceneTemplate
-from theia_tpu.scene import Scene, Transform
+from theia_jax.material import Material, MaterialStore
+from theia_jax.mesh import loadMesh, loadObjScene
+from theia_jax.render import SceneTemplate
+from theia_jax.scene import Scene, Transform
 
 OBJ = """\
 # two tetrahedra with named objects + materials

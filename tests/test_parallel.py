@@ -6,18 +6,18 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from theia_tpu.callback import EventStatisticCallback
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+from theia_jax.callback import EventStatisticCallback
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.parallel import make_photon_mesh, shard_trace, sharded_streams
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.parallel import make_photon_mesh, shard_trace, sharded_streams
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -107,26 +107,27 @@ def test_sharded_gradient():
 
 
 def test_sharded_polarized_scene_gradient():
-    """Capstone config (BASELINE.md staged config 5): suzanne.stl polarized
+    """Capstone config (BASELINE.md staged config 5): lobed-sphere polarized
     transient with medium-parameter gradients, sharded over the device
     mesh with psum'd histograms and gradients."""
     import dataclasses
 
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import SceneForwardTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.mesh import icosphere, lobed_sphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import SceneForwardTracer
 
     medium = WaterTestModel(mu_a=0.002, mu_s=0.01, g=0.4).createMedium()
     store = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"suzanne": "/root/reference/assets/suzanne.stl"})
+    meshes = MeshStore({"lobed": lobed_sphere()})
     scene = Scene(
         [
             meshes.createInstance(
-                "suzanne", "det",
+                "lobed", "det",
                 Transform.TRS(scale=8.0, translate=(25.0, 0.0, 0.0)),
                 detectorId=1,
             )
@@ -188,16 +189,17 @@ def test_sharded_polarized_scene_gradient():
 def test_sharded_instanced_scene_equals_single():
     """The instanced accel's lax.while_loop traversal must compile and
     run inside shard_map with results identical to single-device."""
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import SceneForwardTracer
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.mesh import icosphere, lobed_sphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import SceneForwardTracer
 
     def build_scene_tracer(batch):
         medium = WaterTestModel(mu_a=0.0, mu_s=0.03, g=0.0).createMedium()
         mat = Material("det", None, medium, flags="DB")
         store = MaterialStore.pack([mat])
-        meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+        meshes = MeshStore({"sphere": icosphere()})
         insts = [
             meshes.createInstance(
                 "sphere",
@@ -240,8 +242,8 @@ def test_multihost_runner_single_params_snapshot():
     """shard_trace_multihost must take exactly ONE params() snapshot per
     batch (regression: a second call double-advanced streaming sources,
     silently skipping every other data block)."""
-    from theia_tpu.light import StreamingHostWavelengthSource
-    from theia_tpu.parallel import shard_trace_multihost
+    from theia_jax.light import StreamingHostWavelengthSource
+    from theia_jax.parallel import shard_trace_multihost
 
     wl = np.linspace(400.0, 500.0, 16 * 1024, dtype=np.float32)
     src = StreamingHostWavelengthSource(wl, batchSize=4 * 1024)

@@ -3,22 +3,22 @@
 import numpy as np
 import pytest
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.pipeline import (
+from theia_jax.pipeline import (
     ConvergeHistogramTask,
     Pipeline,
     PipelineScheduler,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
@@ -139,7 +139,7 @@ def test_runtime_batch_size_no_retrace():
 
     ref = make(half)
     h_ref, _ = ref.run()
-    # same hits, but the MXU one-hot accumulation reduces over capacity
+    # same hits, but the histogram accumulation reduces over capacity
     # lanes (masked ones add exact zeros), so the f32 reduction tree
     # differs from the dedicated half-size tracer's
     np.testing.assert_allclose(np.asarray(h_half), np.asarray(h_ref), rtol=1e-4)
@@ -181,7 +181,7 @@ def test_checkpoint_resume_bitexact(tmp_path):
     exactly the uninterrupted run's estimator state and RNG cursor
     (SURVEY aux 5.4 — RNG offsets + Welford accumulators are the only
     non-reproducible state)."""
-    from theia_tpu.pipeline import loadCheckpoint, saveCheckpoint
+    from theia_jax.pipeline import loadCheckpoint, saveCheckpoint
 
     def batches(pipe, task, n):
         for _ in range(n):
@@ -216,10 +216,10 @@ def test_checkpoint_captures_streaming_source_cursor(tmp_path):
     """Streaming host sources replay host arrays block by block; their
     cursor must survive checkpoint/resume (regression: only stages with
     advance() were captured)."""
-    from theia_tpu.light import StreamingHostWavelengthSource
-    from theia_tpu.pipeline import loadCheckpoint, saveCheckpoint
-    from theia_tpu.target import InnerSphereTarget
-    from theia_tpu.trace import VolumeForwardTracer
+    from theia_jax.light import StreamingHostWavelengthSource
+    from theia_jax.pipeline import loadCheckpoint, saveCheckpoint
+    from theia_jax.target import InnerSphereTarget
+    from theia_jax.trace import VolumeForwardTracer
 
     def build_streaming():
         wl = np.linspace(400.0, 500.0, 40 * 1024, dtype=np.float32)

@@ -8,18 +8,18 @@ chain and S0 folds into the contribution."""
 import numpy as np
 import pytest
 
-from theia_tpu.camera import SphereCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+from theia_jax.camera import SphereCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     HenyeyGreensteinPhaseFunction,
     KokhanovskyOceanWaterPhaseMatrix,
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse, HitRecorder
-from theia_tpu.testing import WaterTestModel
-from theia_tpu.trace.backward import VolumeBackwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse, HitRecorder
+from theia_jax.testing import WaterTestModel
+from theia_jax.trace.backward import VolumeBackwardTracer
 
 
 class PolWater(
@@ -81,8 +81,8 @@ def test_mueller_chain_physical():
 
 
 def test_unsupported_camera_raises():
-    from theia_tpu.camera import HostCamera
-    from theia_tpu.response import HistogramHitResponse
+    from theia_jax.camera import HostCamera
+    from theia_jax.response import HistogramHitResponse
 
     medium = WaterTestModel(mu_a=0.0, mu_s=0.01, g=0.0).createMedium()
     n = 256
@@ -115,7 +115,7 @@ def test_polarized_cone_light_direct():
     """Polarized cone source through the direct connection: the camera
     receives the source's Stokes vector rotated into the camera frame;
     a fully Q-polarized source keeps DoP=1 on the unscattered path."""
-    from theia_tpu.light import ConeLightSource
+    from theia_jax.light import ConeLightSource
 
     medium = WaterTestModel(mu_a=0.0, mu_s=1e-6, g=0.0).createMedium()
     rec = HitRecorder(polarized=True)
@@ -149,13 +149,14 @@ def test_polarized_cone_light_direct():
 
 
 def _pol_scene(mu_s=0.02, g=0.4):
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.scene import MeshStore, Scene, Transform
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Scene, Transform
 
     medium = WaterTestModel(mu_a=0.002, mu_s=mu_s, g=g).createMedium()
     mat = Material("wall", None, medium, flags="R")
     store = MaterialStore.pack([mat], media=[medium])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     # distant enclosing shell so geometry exists but rarely interferes
     inst = meshes.createInstance("sphere", "wall", Transform.TRS(scale=500.0))
     return Scene([inst], store, medium=medium.name)
@@ -164,7 +165,7 @@ def _pol_scene(mu_s=0.02, g=0.4):
 def test_scene_backward_polarized_scalar_invariance():
     """Scalar medium: polarized Mueller transport must not change the
     light curve of the scene backward tracer."""
-    from theia_tpu.trace.scene_backward import SceneBackwardTracer
+    from theia_jax.trace.scene_backward import SceneBackwardTracer
 
     scene = _pol_scene()
 
@@ -192,12 +193,12 @@ def test_scene_backward_polarized_fresnel_mueller():
     """A mirror bounce inside the camera path polarizes the transported
     light: compare the detected Stokes of a path camera->mirror->light
     against the analytic Fresnel polarizer."""
-    from theia_tpu.camera import PencilCamera
-    from theia_tpu.light import ConeLightSource
-    from theia_tpu.material import DispersionFreeMedium, Material, MaterialStore
-    from theia_tpu.mesh import Mesh
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.trace.scene_backward import SceneBackwardTracer
+    from theia_jax.camera import PencilCamera
+    from theia_jax.light import ConeLightSource
+    from theia_jax.material import DispersionFreeMedium, Material, MaterialStore
+    from theia_jax.mesh import Mesh, icosphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.trace.scene_backward import SceneBackwardTracer
 
     N1, N2 = 4.0 / 3.0, 1.5
     water = DispersionFreeMedium(n=N1, ng=N1, mu_a=0.0, mu_s=1e-5).createMedium(

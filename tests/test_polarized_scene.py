@@ -10,13 +10,13 @@ polarization.glsl:109-121)."""
 import numpy as np
 import pytest
 
-from theia_tpu.light import PencilLightSource, UniformWavelengthSource
-from theia_tpu.material import DispersionFreeMedium, Material, MaterialStore
-from theia_tpu.mesh import Mesh
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HitRecorder
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.trace.scene import SceneForwardTracer
+from theia_jax.light import PencilLightSource, UniformWavelengthSource
+from theia_jax.material import DispersionFreeMedium, Material, MaterialStore
+from theia_jax.mesh import Mesh, icosphere
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HitRecorder
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.trace.scene import SceneForwardTracer
 
 N_WATER = 4.0 / 3.0
 N_GLASS = 1.5
@@ -119,12 +119,12 @@ def test_packed_phase_matrix_matches_direct():
     medium with phase-matrix tables (shared tables, packed addressing)."""
     import jax.numpy as jnp
 
-    from theia_tpu.material import MediumStore
-    from theia_tpu.polarization import phase_matrix_elements
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace.scene import _phase_matrix_packed
+    from theia_jax.material import MediumStore
+    from theia_jax.polarization import phase_matrix_elements
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace.scene import _phase_matrix_packed
 
-    from theia_tpu.material import (
+    from theia_jax.material import (
         HenyeyGreensteinPhaseFunction,
         KokhanovskyOceanWaterPhaseMatrix,
         MediumModel,
@@ -162,8 +162,8 @@ def test_volume_vs_scene_polarized_crosscheck():
     tracer (mesh geometry, packed tables) implement Stokes transport
     independently; for the same Mueller medium their detected polarization
     statistics must agree."""
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import (
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import (
         HenyeyGreensteinPhaseFunction,
         KokhanovskyOceanWaterPhaseMatrix,
         Material,
@@ -171,11 +171,11 @@ def test_volume_vs_scene_polarized_crosscheck():
         MediumModel,
         WaterBaseModel,
     )
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HitRecorder
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.target import SphereTarget
-    from theia_tpu.trace import SceneForwardTracer, VolumeForwardTracer
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HitRecorder
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.target import SphereTarget
+    from theia_jax.trace import SceneForwardTracer, VolumeForwardTracer
 
     class PolWater(
         WaterBaseModel,
@@ -224,7 +224,7 @@ def test_volume_vs_scene_polarized_crosscheck():
     s_vol = stats(vol.run()[0])
 
     store = MaterialStore.pack([Material("det", None, medium, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     scene = Scene(
         [
             meshes.createInstance(

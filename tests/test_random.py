@@ -9,7 +9,7 @@ from scipy.stats import kstest
 
 import jax.numpy as jnp
 
-from theia_tpu.random import PhiloxRNG, philox_uniform, philox4x32
+from theia_jax.random import PhiloxRNG, philox_uniform, philox4x32
 
 M32 = 0xFFFFFFFF
 

@@ -1,5 +1,5 @@
 """Reference API-surface parity: every name in the reference's module
-__all__ lists must exist at the matching theia_tpu location and do the
+__all__ lists must exist at the matching theia_jax location and do the
 real thing (items produce the reference's binary record layout, samplers
 draw, queues interop with the responses that fill them)."""
 
@@ -13,15 +13,15 @@ import jax.numpy as jnp
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 
 REF_API = {
-    "theia_tpu.camera": "Camera CameraRayItem CameraRaySampler ConeCamera "
+    "theia_jax.camera": "Camera CameraRayItem CameraRaySampler ConeCamera "
     "FlatCamera HostCamera MeshCamera PencilCamera PointCamera "
     "PolarizedCameraRayItem SphereCamera",
-    "theia_tpu.cascades": "CascadeLightYield CascadeParameters "
+    "theia_jax.cascades": "CascadeLightYield CascadeParameters "
     "CascadePrimaryParticle EMinus EPlus Gamma K0_Long Neutron Particle "
     "ParticleType PiMinus PiPlus PMinus PPlus X0_ice X0_water "
     "createCascadeParameters createParamsFromParticle "
     "getCascadeParamsFromParticleType rho_ice rho_water",
-    "theia_tpu.light": "CherenkovLightSource CherenkovTrackLightSource "
+    "theia_jax.light": "CherenkovLightSource CherenkovTrackLightSource "
     "ConeLightSource ConstWavelengthSource FunctionWavelengthSource "
     "HostLightSource HostWavelengthSource LightSampleItem LightSampler "
     "LightSource MuonTrackLightSource ParticleCascadeLightSource "
@@ -29,14 +29,14 @@ REF_API = {
     "SphericalLightSource StreamingHostLightSource "
     "StreamingHostWavelengthSource UniformWavelengthSource "
     "WavelengthSampleItem WavelengthSource frankTamm",
-    "theia_tpu.lookup": "getTableSize uploadTables Table",
-    "theia_tpu.material": "loadMaterials parseMaterialFlags saveMaterials "
+    "theia_jax.lookup": "getTableSize uploadTables Table",
+    "theia_jax.material": "loadMaterials parseMaterialFlags saveMaterials "
     "serializeMedium speed_of_light BK7Model FournierForandPhaseFunction "
     "HenyeyGreensteinPhaseFunction KokhanovskyOceanWaterPhaseMatrix "
     "Material MaterialFlags MaterialStore Medium MediumModel "
     "SellmeierEquation WaterBaseModel",
-    "theia_tpu.random": "Counter Key PhiloxRNG RNG RNGBufferSink SobolQRNG",
-    "theia_tpu.response": "createHitTimeQueue createValueQueue "
+    "theia_jax.random": "Counter Key PhiloxRNG RNG RNGBufferSink SobolQRNG",
+    "theia_jax.response": "createHitTimeQueue createValueQueue "
     "CameraHitResponseItem CameraHitResponseSampler CustomValueResponse "
     "EmptyResponse Estimator HistogramEstimator HistogramHitResponse "
     "HistogramReducer HitItem HitRecorder HitReplay HitResponse "
@@ -44,21 +44,21 @@ REF_API = {
     "PolarizedCameraHitResponseItem PolarizedHitItem SampleValueResponse "
     "StoreTimeHitResponse StoreValueHitResponse UniformValueResponse "
     "ValueItem ValueResponse",
-    "theia_tpu.scene": "loadMesh MeshInstance MeshStore RectBBox Scene "
+    "theia_jax.scene": "loadMesh MeshInstance MeshStore RectBBox Scene "
     "SphereBBox Transform",
-    "theia_tpu.render": "SceneRender SceneTemplate",
-    "theia_tpu.target": "DiskTarget DiskTargetGuide FlatTarget "
+    "theia_jax.render": "SceneRender SceneTemplate",
+    "theia_jax.target": "DiskTarget DiskTargetGuide FlatTarget "
     "FlatTargetGuide InnerSphereTarget SphereTarget SphereTargetGuide "
     "Target TargetGuide",
-    "theia_tpu.pipeline": "ConvergeHistogramTask",
-    "theia_tpu.testing": "BackwardLightSampler CameraDirectSampler "
+    "theia_jax.pipeline": "ConvergeHistogramTask",
+    "theia_jax.testing": "BackwardLightSampler CameraDirectSampler "
     "TargetGuideSampler TargetSampler WaterTestModel",
-    "theia_tpu.trace": "BidirectionalPathTracer EmptyEventCallback "
+    "theia_jax.trace": "BidirectionalPathTracer EmptyEventCallback "
     "EventResultCode EventStatisticCallback SceneBackwardTracer "
     "SceneBackwardTargetTracer SceneForwardTracer ScenePhotonTracer "
     "Tracer TraceEventCallback TrackRecordCallback VolumeBackwardTracer "
     "VolumePhotonTracer VolumeForwardTracer",
-    "theia_tpu.units": "convert km m cm mm inch ft yd mi per_km per_m "
+    "theia_jax.units": "convert km m cm mm inch ft yd mi per_km per_m "
     "per_cm per_mm c s ms us ns ps um nm rad deg eV keV GeV TeV PeV",
 }
 
@@ -68,19 +68,19 @@ def test_reference_names_present(module):
     import importlib
 
     m = importlib.import_module(module)
-    import theia_tpu
+    import theia_jax
 
     missing = [
         n
         for n in REF_API[module].split()
-        if not (hasattr(m, n) or hasattr(theia_tpu, n))
+        if not (hasattr(m, n) or hasattr(theia_jax, n))
     ]
     assert not missing, missing
 
 
 def test_item_layout_roundtrip():
     """from_queue produces the reference's exact binary record layout."""
-    from theia_tpu.items import PolarizedHitItem, ValueItem
+    from theia_jax.items import PolarizedHitItem, ValueItem
 
     n = 7
     queue = dict(
@@ -112,9 +112,9 @@ def test_item_layout_roundtrip():
 
 
 def test_samplers_draw_and_advance():
-    from theia_tpu.light import LightSampler, SphericalLightSource
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.items import LightSampleItem
+    from theia_jax.light import LightSampler, SphericalLightSource
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.items import LightSampleItem
 
     src = SphericalLightSource(
         position=(1.0, 2.0, 3.0), timeRange=(0.0, 0.0), budget=1.0
@@ -130,7 +130,7 @@ def test_samplers_draw_and_advance():
 
 
 def test_camera_ray_sampler():
-    from theia_tpu.camera import CameraRaySampler, PencilCamera
+    from theia_jax.camera import CameraRaySampler, PencilCamera
 
     cam = PencilCamera(rayPosition=(0.0, 0.0, 0.0), rayDirection=(0, 0, 1.0))
     out = CameraRaySampler(cam, 64).run()
@@ -139,7 +139,7 @@ def test_camera_ray_sampler():
 
 
 def test_rng_buffer_sink_matches_rng_buffer():
-    from theia_tpu.random import PhiloxRNG, RNGBufferSink, rng_buffer
+    from theia_jax.random import PhiloxRNG, RNGBufferSink, rng_buffer
 
     sink = RNGBufferSink(PhiloxRNG(key=77), streams=32, samples=16)
     buf = sink.run()
@@ -150,7 +150,7 @@ def test_rng_buffer_sink_matches_rng_buffer():
 
 
 def test_key_counter_views():
-    from theia_tpu.random import Counter, Key, PhiloxRNG
+    from theia_jax.random import Counter, Key, PhiloxRNG
 
     k = Key(0xDEADBEEF12345678)
     assert k.lo == 0x12345678 and k.hi == 0xDEADBEEF
@@ -163,8 +163,8 @@ def test_key_counter_views():
 
 
 def test_queue_creators_match_response_layouts():
-    from theia_tpu.component import TraceConfig
-    from theia_tpu.response import (
+    from theia_jax.component import TraceConfig
+    from theia_jax.response import (
         StoreTimeHitResponse,
         StoreValueHitResponse,
         createHitTimeQueue,
@@ -193,7 +193,7 @@ def test_queue_creators_match_response_layouts():
 
 
 def test_histogram_reducer():
-    from theia_tpu.response import HistogramReducer
+    from theia_jax.response import HistogramReducer
 
     red = HistogramReducer(nBins=8, normalization=0.5)
     hists = np.stack([np.arange(8.0), np.ones(8)])
@@ -202,8 +202,8 @@ def test_histogram_reducer():
 
 
 def test_table_upload_and_size():
-    from theia_tpu.lookup import Table, getTableSize, uploadTables, lookup
-    from theia_tpu.material import lookup_packed
+    from theia_jax.lookup import Table, getTableSize, uploadTables, lookup
+    from theia_jax.material import lookup_packed
 
     t = Table(np.linspace(0.0, 1.0, 11))
     assert t.nbytes == 11 * 4 + 4
@@ -222,8 +222,8 @@ def test_table_upload_and_size():
 
 
 def test_serialize_medium():
-    from theia_tpu.material import serializeMedium
-    from theia_tpu.testing import WaterTestModel
+    from theia_jax.material import serializeMedium
+    from theia_jax.testing import WaterTestModel
 
     med = WaterTestModel().createMedium()
     assert serializeMedium(med) == med.name
@@ -232,13 +232,13 @@ def test_serialize_medium():
 
 
 def test_package_root_exposes_submodules():
-    """`import theia_tpu; theia_tpu.camera...` works like the reference
+    """`import theia_jax; theia_jax.camera...` works like the reference
     root (ref __init__.py exposes every submodule), including the
     reference's `task` module name."""
-    import theia_tpu
+    import theia_jax
 
-    assert theia_tpu.camera.PencilCamera is not None
-    assert theia_tpu.task.ConvergeHistogramTask is not None
-    assert theia_tpu.scene.Scene is not None
+    assert theia_jax.camera.PencilCamera is not None
+    assert theia_jax.task.ConvergeHistogramTask is not None
+    assert theia_jax.scene.Scene is not None
     with pytest.raises(AttributeError):
-        theia_tpu.not_a_module
+        theia_jax.not_a_module

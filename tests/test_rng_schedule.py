@@ -43,28 +43,28 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.callback import TraceEventCallback
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.callback import TraceEventCallback
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     Material,
     MaterialStore,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import SphereTarget, SphereTargetGuide
-from theia_tpu.trace.core import EventResultCode
-from theia_tpu.trace.photon import VolumePhotonTracer
-from theia_tpu.trace.scene import SceneForwardTracer
-from theia_tpu.trace.volume import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import SphereTarget, SphereTargetGuide
+from theia_jax.trace.core import EventResultCode
+from theia_jax.trace.photon import VolumePhotonTracer
+from theia_jax.trace.scene import SceneForwardTracer
+from theia_jax.trace.volume import VolumeForwardTracer
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
 
-ASSETS = "/root/reference/assets"
 SCATTERED = int(EventResultCode.RAY_SCATTERED)
 HIT = int(EventResultCode.RAY_HIT)
 
@@ -133,7 +133,7 @@ def build_scene_tracer(guide: bool, max_path: int = 5):
             Material("det_water", None, water, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     det_pos = (0.0, 3.0, 0.0)
     instances = [
         meshes.createInstance("sphere", "glass_water", Transform.TRS(scale=1.0)),
@@ -270,7 +270,7 @@ def test_ref_compat_rng_stride():
     # --- scene tracer with a guide: ref stride is 4 + G (not 5 + G) ---
     water = Model().createMedium(num_lambda=8, num_theta=64)
     mats = MaterialStore.pack([Material("det_water", None, water, flags="DB")])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     det_pos = (0.0, 3.0, 0.0)
     scene = Scene(
         [

@@ -6,25 +6,24 @@ import pytest
 
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.camera import PointCamera, SphereCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.camera import PointCamera, SphereCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     Material,
     MaterialStore,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse, HitRecorder
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.trace.scene_backward import (
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse, HitRecorder
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.trace.scene_backward import (
     SceneBackwardTargetTracer,
     SceneBackwardTracer,
 )
-
-ASSETS = "/root/reference/assets"
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -40,7 +39,7 @@ def test_backward_target_emissive_sphere():
     responds with contrib 4pi at the ballistic arrival time."""
     mat = Material("emit", None, None, flags="LB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance("sphere", "emit", Transform.TRS(scale=10.0))
     scene = Scene([inst], store, medium=None)
     batch = 4 * 1024
@@ -70,7 +69,7 @@ def test_backward_target_emissive_sphere():
 def test_scene_backward_matches_volume_backward():
     """With only a distant non-interacting object in the scene, the scene
     backward tracer must match the volume backward estimator."""
-    from theia_tpu.trace.backward import VolumeBackwardTracer
+    from theia_jax.trace.backward import VolumeBackwardTracer
 
     medium = Model(0.0, 0.02, -0.4).createMedium()
     position = (12.0, 15.0, 0.2)
@@ -78,7 +77,7 @@ def test_scene_backward_matches_volume_backward():
     # a tiny black sphere far outside the detector sphere
     mat = Material("bb", None, medium, flags="B")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     far = meshes.createInstance(
         "sphere", "bb", Transform.TRS(scale=1.0, translate=(500.0, 0.0, 0.0))
     )

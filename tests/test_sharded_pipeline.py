@@ -8,24 +8,24 @@ import pytest
 
 import jax
 
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.parallel import ShardedRunner
-from theia_tpu.pipeline import (
+from theia_jax.parallel import ShardedRunner
+from theia_jax.pipeline import (
     ConvergeHistogramTask,
     Pipeline,
     PipelineScheduler,
     loadCheckpoint,
     saveCheckpoint,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):

@@ -4,7 +4,7 @@ The reference ships a GPU Sobol sampler documented broken
 (reference: src/theia/random.py:285-352, docs/pipeline/components.md:195-197);
 ours must actually work: exact elementary-interval stratification, KS
 uniformity, reproducibility, and a measured variance reduction vs Philox
-when plugged into a tracer (VERDICT r1 item #7).
+when plugged into a tracer.
 """
 
 import numpy as np
@@ -13,7 +13,7 @@ from scipy.stats import kstest
 
 import jax.numpy as jnp
 
-from theia_tpu.random import (
+from theia_jax.random import (
     PhiloxRNG,
     SobolQRNG,
     rng_buffer,
@@ -92,18 +92,18 @@ def test_integration_error_beats_philox():
 @pytest.mark.slow
 def test_tracer_variance_reduction():
     """Plugged into VolumeForwardTracer, Sobol reproduces the Philox light
-    curve and reduces across-replicate variance (VERDICT done-criterion)."""
+    curve and reduces across-replicate variance."""
     import warnings
 
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import (
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import (
         DispersionFreeMedium,
         HenyeyGreensteinPhaseFunction,
         MediumModel,
     )
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.target import InnerSphereTarget
-    from theia_tpu.trace import VolumeForwardTracer
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.target import InnerSphereTarget
+    from theia_jax.trace import VolumeForwardTracer
 
     class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
         def __init__(self):
@@ -157,7 +157,7 @@ def test_stream_is_lane_id_after_advance():
     np.testing.assert_array_equal(np.asarray(st.stream), np.arange(64))
     np.testing.assert_array_equal(np.asarray(st.index), np.arange(64) + 1024)
 
-    from theia_tpu.light import HostWavelengthSource
+    from theia_jax.light import HostWavelengthSource
 
     src = HostWavelengthSource(np.linspace(400.0, 500.0, 1000, dtype=np.float32))
     (lam, _), _ = src.sample(
@@ -172,7 +172,7 @@ def test_buffer_sink_sobol_blocks_disjoint():
     """RNGBufferSink must advance a Sobol generator by *rows*: consecutive
     run() blocks share no values (regression: advancing by draws made
     block 2 overlap rows 4.. of block 1)."""
-    from theia_tpu.random import RNGBufferSink
+    from theia_jax.random import RNGBufferSink
 
     sink = RNGBufferSink(SobolQRNG(seed=3, dims=8), streams=32, samples=4)
     a = sink.run()

@@ -7,8 +7,8 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.target import (
+from theia_jax.random import PhiloxRNG
+from theia_jax.target import (
     DiskTarget,
     DiskTargetGuide,
     FlatTarget,

@@ -6,20 +6,20 @@ import pytest
 
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.camera import PointCamera, SphereCamera
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.camera import PointCamera, SphereCamera
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
-from theia_tpu.trace.backward import VolumeBackwardTracer
-from theia_tpu.trace.direct import DirectLightTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
+from theia_jax.trace.backward import VolumeBackwardTracer
+from theia_jax.trace.direct import DirectLightTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -104,7 +104,7 @@ def test_backward_energy_conservation():
     surface): total unattenuated estimate must equal the budget
     (reference: tests/test_trace_energy.py:953-1058; their err=2e-3 at
     102M samples for this config — scaled for 1M samples)."""
-    from theia_tpu.response import HitRecorder
+    from theia_jax.response import HitRecorder
 
     mu_a, mu_s, g = 0.0, 0.02, -0.4
     position = (12.0, 15.0, 0.2)
@@ -149,16 +149,16 @@ def test_track_backward_matches_simple_cherenkov():
     light curve (the track source's backward mode is absent from the
     reference — lightsource.cherenkov.track.glsl:78-79 TODO). Streams
     diverge (0 vs 1 backward draw), so agreement is statistical."""
-    import theia_tpu.units as u
-    from theia_tpu.camera import PointCamera
-    from theia_tpu.light import (
+    import theia_jax.units as u
+    from theia_jax.camera import PointCamera
+    from theia_jax.light import (
         CherenkovLightSource,
         CherenkovTrackLightSource,
         ParticleTrack,
         UniformWavelengthSource,
     )
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.testing import WaterTestModel
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.testing import WaterTestModel
 
     medium = WaterTestModel(mu_a=0.01, mu_s=0.03, g=0.4).createMedium()
     verts = np.array(

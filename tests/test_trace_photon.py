@@ -4,18 +4,18 @@ tests/test_trace_energy.py:1353-1550 chain of trust)."""
 import numpy as np
 import pytest
 
-import theia_tpu.units as u
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse, StoreTimeHitResponse
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
-from theia_tpu.trace.photon import VolumePhotonTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse, StoreTimeHitResponse
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
+from theia_jax.trace.photon import VolumePhotonTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -91,14 +91,15 @@ def test_scene_photon_smoke():
     """ScenePhotonTracer end-to-end on the enclosing DB sphere: detected
     photon count ~= batch (no absorption, everything eventually detected
     or truncated)."""
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.trace.photon import ScenePhotonTracer
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.trace.photon import ScenePhotonTracer
 
     medium = Model(0.0, 0.01, 0.0).createMedium()
     mat = Material("det", medium, None, flags="DB")
     store = MaterialStore.pack([mat])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     inst = meshes.createInstance(
         "sphere", "det", Transform.TRS(scale=50.0), detectorId=0
     )
@@ -129,17 +130,18 @@ def test_photon_polarized_smoke():
     """Polarized photon mode (inherits the scene tracer's Stokes threading)."""
     import numpy as np
 
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HitRecorder
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.testing import WaterTestModel
-    from theia_tpu.trace import ScenePhotonTracer
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HitRecorder
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.testing import WaterTestModel
+    from theia_jax.trace import ScenePhotonTracer
 
     medium = WaterTestModel(mu_a=0.005, mu_s=0.01, g=0.3).createMedium()
     store = MaterialStore.pack([Material("det", medium, None, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     scene = Scene(
         [meshes.createInstance("sphere", "det", Transform.TRS(scale=50.0))],
         store,
@@ -222,13 +224,14 @@ def test_scene_run_compacted_matches_run():
     """ScenePhotonTracer's compacted ladder carries each lane's dim counter
     (the scene schedule has no per-run resync), so draws — and the light
     curve — must match run() up to float32 accumulation order."""
-    from theia_tpu.material import Material, MaterialStore
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.trace.photon import ScenePhotonTracer
+    from theia_jax.material import Material, MaterialStore
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.trace.photon import ScenePhotonTracer
 
     medium = Model(0.02, 0.01, 0.3).createMedium()  # absorbing water
     store = MaterialStore.pack([Material("det", medium, None, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     scene = Scene(
         [meshes.createInstance("sphere", "det", Transform.TRS(scale=120.0))],
         store,

@@ -6,23 +6,22 @@ import pytest
 
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.callback import EventStatisticCallback
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.callback import EventStatisticCallback
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     Material,
     MaterialStore,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse, HitRecorder
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import SphereTargetGuide
-from theia_tpu.trace.scene import SceneForwardTracer
-
-ASSETS = "/root/reference/assets"
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse, HitRecorder
+from theia_jax.mesh import icosphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import SphereTargetGuide
+from theia_jax.trace.scene import SceneForwardTracer
 
 
 class Model(DispersionFreeMedium, HenyeyGreensteinPhaseFunction, MediumModel):
@@ -46,7 +45,7 @@ def run_ground_truth(mu_a, mu_s, g, batch_size=16 * 1024, n_batches=4):
     medium = model.createMedium()
     material = Material("det", medium, None, flags="DB")
     mat_store = MaterialStore.pack([material])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     trafo = Transform.TRS(scale=radius, translate=position)
     target = meshes.createInstance("sphere", "det", trafo, detectorId=0)
     scene = Scene([target], mat_store, medium="homogenous")
@@ -130,7 +129,7 @@ def test_scene_crosscheck_guide_mis():
     medium = model.createMedium()
     material = Material("det", None, medium, flags="DB")
     mat_store = MaterialStore.pack([material])
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     trafo = Transform.TRS(scale=radius, translate=position)
 
     def build(guide, batch, key):
@@ -180,16 +179,16 @@ def test_multimedia_shell_energy_conservation():
     so the total detected weight equals the budget regardless of how many
     Fresnel reflections/transmissions it took (model: reference
     tests/test_trace_energy.py multi-media shells)."""
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import (
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import (
         DispersionFreeMedium,
         Material,
         MaterialStore,
     )
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.scene import MeshStore, Scene, Transform
-    from theia_tpu.trace import SceneForwardTracer
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.scene import MeshStore, Scene, Transform
+    from theia_jax.trace import SceneForwardTracer
 
     water = DispersionFreeMedium(n=4.0 / 3.0, ng=4.0 / 3.0, mu_a=0.0, mu_s=1e-4).createMedium(name="water")
     glass = DispersionFreeMedium(n=1.5, ng=1.5, mu_a=0.0, mu_s=0.0).createMedium(name="glass")
@@ -201,7 +200,7 @@ def test_multimedia_shell_energy_conservation():
         ],
         media=[water],
     )
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     BUDGET = 1e9
     scene = Scene(
         [
@@ -244,7 +243,7 @@ def test_shadow_split_matches_fused():
     detector and occluder triangles are measure-zero off shared edges)."""
     import dataclasses
 
-    from theia_tpu.target import SphereTargetGuide
+    from theia_jax.target import SphereTargetGuide
 
     def run(accel, drop_split):
         water = Model(0.01, 0.4, 0.3).createMedium(num_lambda=8, num_theta=64, name="water")
@@ -254,7 +253,7 @@ def test_shadow_split_matches_fused():
                 Material("occluder", None, water, flags="T"),
             ]
         )
-        meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+        meshes = MeshStore({"sphere": icosphere()})
         det_pos = (0.0, 3.0, 0.0)
         scene = Scene(
             [

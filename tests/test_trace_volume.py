@@ -8,19 +8,19 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import theia_tpu.units as u
-from theia_tpu.callback import EventStatisticCallback
-from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-from theia_tpu.material import (
+import theia_jax.units as u
+from theia_jax.callback import EventStatisticCallback
+from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+from theia_jax.material import (
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
     KokhanovskyOceanWaterPhaseMatrix,
     MediumModel,
 )
-from theia_tpu.random import PhiloxRNG
-from theia_tpu.response import HistogramHitResponse, HitRecorder
-from theia_tpu.target import InnerSphereTarget
-from theia_tpu.trace import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG
+from theia_jax.response import HistogramHitResponse, HitRecorder
+from theia_jax.target import InnerSphereTarget
+from theia_jax.trace import VolumeForwardTracer
 
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers
@@ -186,7 +186,7 @@ def test_polarized_energy_and_stokes():
     """Polarized transport must conserve energy (same totals) and produce
     valid normalized Stokes vectors (reference: test_trace_energy.py
     polarized rows; test_trace.py:90-212 Stokes checks)."""
-    from theia_tpu.material import KokhanovskyOceanWaterPhaseMatrix
+    from theia_jax.material import KokhanovskyOceanWaterPhaseMatrix
 
     class PolModel(
         DispersionFreeMedium,

@@ -7,7 +7,7 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-import theia_tpu.units as u
+import theia_jax.units as u
 
 
 pytestmark = pytest.mark.core  # fast smoke tier, see pyproject markers

@@ -1,13 +1,13 @@
 """Brute-scan vs threaded-BVH crossover on a detector-array scene.
 
 Builds the domain's scaling scenario — a grid of sphere modules stamped
-from a SceneTemplate (VERDICT r1 item 6) — at several sizes, and times
+from a SceneTemplate — at several sizes, and times
 one `intersect_scene` wavefront call per backend in the same session.
 Rays are sampled inside the array's bbox with random directions (the
 worst, least-coherent case for a BVH).
 
 Usage: python tools/bench_bvh_crossover.py [--rays 65536]
-Writes a markdown table to stdout for PERF.md.
+Writes a markdown table to stdout.
 """
 
 import argparse
@@ -46,7 +46,7 @@ def timed(fn, make_args, reps=3):
 
 def build_array_scene(n_side, accel, leaf_size=8):
     """n_side^3 sphere modules on a grid, BK7 shells in water."""
-    from theia_tpu.material import (
+    from theia_jax.material import (
         BK7Model,
         HenyeyGreensteinPhaseFunction,
         Material,
@@ -54,8 +54,9 @@ def build_array_scene(n_side, accel, leaf_size=8):
         MediumModel,
         WaterBaseModel,
     )
-    from theia_tpu.render import SceneTemplate
-    from theia_tpu.scene import MeshStore, Transform
+    from theia_jax.render import SceneTemplate
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Transform
 
     class WaterModel(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):
         ModelName = "water"
@@ -69,7 +70,7 @@ def build_array_scene(n_side, accel, leaf_size=8):
     mats = MaterialStore.pack(
         [Material("det_water", glass, water, flags="DB")]
     )
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance(
         "sphere", "det_water", Transform.TRS(scale=0.4), detectorId=0
     )
@@ -88,7 +89,7 @@ def build_array_scene(n_side, accel, leaf_size=8):
 
 
 def bench_backend(scene, extent, n_ray, key):
-    from theia_tpu.accel import intersect_scene
+    from theia_jax.accel import intersect_scene
 
     pack = scene.pack
     n_tri = int(pack.w_v0.shape[0])

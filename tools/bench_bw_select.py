@@ -3,7 +3,7 @@
 The brute scan only needs *selection* (which triangle wins / does any
 triangle occlude) — the winner's differentiable t/b1/b2 are recomputed
 rowwise afterwards. MT pays two cross products per (ray, tri) pair
-(~54 VPU ops); Baldwin-Weber precomputes per-triangle plane + barycentric
+(~54 flops); Baldwin-Weber precomputes per-triangle plane + barycentric
 rows (12 floats) so the per-pair test is den/num dots + P + two affine
 barycentrics (~39 ops). Rows derive from the same world triangles at
 trace time (hoisted as loop-invariant by XLA).
@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 import __graft_entry__ as g
-from theia_tpu.accel import anyhit_in_soup, nearest_in_soup
+from theia_jax.accel import anyhit_in_soup, nearest_in_soup
 
 CHUNK = 256
 

@@ -11,8 +11,7 @@ backends whose wins have so far only been shown on raw queries
                      groups (>= 4 detectors engages the per-module
                      compacted nearest, accel.intersect_target)
   * brute+cull=off — the un-specialized floor
-  * instanced      — two-level instanced traversal (near-flat in module
-                     count on raw queries: 14x at 655k tris, PERF.md r2)
+  * instanced      — two-level instanced traversal
   * auto           — whatever Scene's heuristic picks (validates it)
 
 Per config: bounces/s = batch x maxPathLength / median batch seconds,
@@ -29,15 +28,8 @@ import os
 import sys
 import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-
-os.environ.setdefault(
-    "JAX_COMPILATION_CACHE_DIR",
-    os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        ".jax_cache",
-    ),
-)
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
 
 import jax
 import jax.numpy as jnp
@@ -48,9 +40,9 @@ def build_array_tracer(n_side: int, accel: str, batch: int, max_path: int):
     """n_side^3 BK7 sphere modules in water + a central light source +
     target-guide MIS toward one module — the bench.py physics on the
     array geometry."""
-    import theia_tpu.units as u
-    from theia_tpu.light import SphericalLightSource, UniformWavelengthSource
-    from theia_tpu.material import (
+    import theia_jax.units as u
+    from theia_jax.light import SphericalLightSource, UniformWavelengthSource
+    from theia_jax.material import (
         BK7Model,
         HenyeyGreensteinPhaseFunction,
         Material,
@@ -58,12 +50,13 @@ def build_array_tracer(n_side: int, accel: str, batch: int, max_path: int):
         MediumModel,
         WaterBaseModel,
     )
-    from theia_tpu.random import PhiloxRNG
-    from theia_tpu.render import SceneTemplate
-    from theia_tpu.response import HistogramHitResponse
-    from theia_tpu.scene import MeshStore, Transform
-    from theia_tpu.target import SphereTargetGuide
-    from theia_tpu.trace.scene import SceneForwardTracer
+    from theia_jax.random import PhiloxRNG
+    from theia_jax.render import SceneTemplate
+    from theia_jax.response import HistogramHitResponse
+    from theia_jax.mesh import icosphere
+    from theia_jax.scene import MeshStore, Transform
+    from theia_jax.target import SphereTargetGuide
+    from theia_jax.trace.scene import SceneForwardTracer
 
     class WaterModel(WaterBaseModel, HenyeyGreensteinPhaseFunction, MediumModel):
         ModelName = "water"
@@ -75,7 +68,7 @@ def build_array_tracer(n_side: int, accel: str, batch: int, max_path: int):
     water = WaterModel().createMedium(num_lambda=64, num_theta=64)
     glass = BK7Model().createMedium(num_lambda=64, num_theta=4)
     mats = MaterialStore.pack([Material("det_water", glass, water, flags="DB")])
-    meshes = MeshStore({"sphere": "/root/reference/assets/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance(
         "sphere", "det_water", Transform.TRS(scale=0.4), detectorId=0
     )
@@ -125,7 +118,8 @@ def build_array_tracer(n_side: int, accel: str, batch: int, max_path: int):
 
 
 def run_config(n_side, accel, batch, max_path, reps, cull_mode=None):
-    import theia_tpu.accel as accel_mod
+    import theia_jax.accel as accel_mod
+    from theia_jax import compile_cache
 
     prev = accel_mod.CULL_MODE
     if cull_mode is not None:
@@ -133,9 +127,12 @@ def run_config(n_side, accel, batch, max_path, reps, cull_mode=None):
     try:
         tracer = build_array_tracer(n_side, accel, batch, max_path)
         fn, (p, counter, streams) = tracer.trace_fn()
-        step = jax.jit(fn)
+        step = compile_cache.jit(fn)
+        t0 = time.perf_counter()
         out = step(p, counter, streams)
         jax.block_until_ready(out)
+        first_call = time.perf_counter() - t0
+        hist = np.asarray(out[0])
         times = []
         for _ in range(reps):
             tracer.rng.advance()
@@ -149,13 +146,15 @@ def run_config(n_side, accel, batch, max_path, reps, cull_mode=None):
         backend = next(
             (
                 b
-                for b in ("instanced", "mt", "woop", "bvh")
+                for b in ("instanced", "bvh")
                 if getattr(tracer.scene.pack, b) is not None
             ),
             "brute",
         )
         return {
             "bounces_per_s": batch * max_path / dt,
+            "first_call_seconds": first_call,
+            "hist": hist,
             "seconds": dt,
             "seconds_spread": [float(min(times)), float(max(times))],
             "hist_sum": hist_sum,
@@ -179,6 +178,9 @@ def main():
     )
     args = ap.parse_args()
 
+    from theia_jax import compile_cache
+
+    compile_cache.enable(ROOT)
     print(f"device: {jax.devices()[0]}", file=sys.stderr)
     for n_side in args.sides:
         results = {}
@@ -188,6 +190,7 @@ def main():
             r = run_config(
                 n_side, accel, args.batch, args.path, args.reps, cull
             )
+            r.pop("hist")
             results[cfg] = r
             print(
                 f"  {n_side ** 3} modules / {cfg}: "

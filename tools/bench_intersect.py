@@ -1,49 +1,25 @@
-"""Parity + performance comparison: brute MT scan vs Woop/MXU Pallas kernel.
+"""Parity + performance of the plain XLA brute scan (accel.nearest_in_soup).
 
-Scene: 3 icosphere-ish shells (like the bench scene). Methodology: varied
-inputs per rep, time call -> host value (the relay has ~31 ms fixed
-overhead and caches identical launches).
+Triangles: the bench scene's 3840-triangle soup (three icospheres).
+Parity: a float64 numpy Moeller-Trumbore on 2048 rays. Performance (GPU
+only): ray-triangle tests per second at 524,288 rays, inputs varied per
+rep, each call ended by block_until_ready.
+
+Usage: python tools/bench_intersect.py
 """
 
+import os
+import sys
 import time
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-import sys, os
-
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from theia_tpu.ops.intersect_woop import (
-    morton_order,
-    nearest_triangle_woop,
-    pack_woop,
-)
-
-
-def make_sphere(n_theta, n_phi, center, radius):
-    th = np.linspace(0.05, np.pi - 0.05, n_theta)
-    ph = np.linspace(0, 2 * np.pi, n_phi, endpoint=False)
-    T, P = np.meshgrid(th, ph, indexing="ij")
-    pts = np.stack(
-        [
-            radius * np.sin(T) * np.cos(P),
-            radius * np.sin(T) * np.sin(P),
-            radius * np.cos(T),
-        ],
-        -1,
-    ).reshape(-1, 3) + center
-    tris = []
-    for i in range(n_theta - 1):
-        for j in range(n_phi):
-            a = i * n_phi + j
-            b = i * n_phi + (j + 1) % n_phi
-            c = a + n_phi
-            d = b + n_phi
-            tris += [[a, b, c], [b, d, c]]
-    idx = np.array(tris)
-    return pts[idx[:, 0]], pts[idx[:, 1]] - pts[idx[:, 0]], pts[idx[:, 2]] - pts[idx[:, 0]]
+import __graft_entry__ as entry  # noqa: E402
+from theia_jax.accel import nearest_in_soup  # noqa: E402
 
 
 def brute(v0, e1, e2, o, d, tmax):
@@ -65,102 +41,50 @@ def brute(v0, e1, e2, o, d, tmax):
     return ti, ii
 
 
+def rays(rng, n):
+    o = rng.uniform(-2, 5, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    return o, d / np.linalg.norm(d, axis=1, keepdims=True)
+
+
 def main():
     rng = np.random.default_rng(7)
-    v0s, e1s, e2s = [], [], []
-    for c, r in (((0, 0, 0), 1.0), ((3, 0, 0), 1.2), ((0, 3, 0), 0.8)):
-        a, b, cc = make_sphere(17, 40, np.array(c, float), r)
-        v0s.append(a)
-        e1s.append(b)
-        e2s.append(cc)
-    v0 = np.concatenate(v0s)
-    e1 = np.concatenate(e1s)
-    e2 = np.concatenate(e2s)
-    perm = morton_order(v0, e1, e2)
-    v0, e1, e2 = v0[perm], e1[perm], e2[perm]
-    n_tri = len(v0)
+    pack = entry._build_scene_tracer(1).scene.pack
+    v0, e1, e2 = (np.asarray(a) for a in (pack.w_v0, pack.w_e1, pack.w_e2))
+    n_tri, tmax = len(v0), 100.0
     print(f"{n_tri} triangles")
 
-    pack = pack_woop(v0, e1, e2)
+    @jax.jit
+    def scan(o, d):
+        return nearest_in_soup(pack.w_v0, pack.w_e1, pack.w_e2, o, d, tmax, 256)
 
-    # --- parity on small N (vs f64 numpy reference) ---
-    n_small = 2048
-    o = rng.uniform(-2, 5, (n_small, 3))
-    d = rng.normal(size=(n_small, 3))
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    tmax = 100.0
-    t_ref, i_ref = brute(v0, e1, e2, o, d, tmax)
-    t_w, i_w = nearest_triangle_woop(
-        pack, jnp.asarray(o, jnp.float32), jnp.asarray(d, jnp.float32), tmax
-    )
-    t_w = np.asarray(t_w)
-    i_w = np.asarray(i_w)
-    hit_match = (i_ref >= 0) == (i_w >= 0)
-    both = (i_ref >= 0) & (i_w >= 0)
-    rel = np.abs(t_w[both] - t_ref[both]) / np.maximum(t_ref[both], 1e-6)
+    o, d = rays(rng, 2048)
+    t_ref, i_ref = brute(v0, e1, e2, o.astype(np.float64), d.astype(np.float64), tmax)
+    t_s, i_s = (np.asarray(x) for x in scan(jnp.asarray(o), jnp.asarray(d)))
+    both = (i_ref >= 0) & (i_s >= 0)
+    rel = np.abs(t_s[both] - t_ref[both]) / np.maximum(t_ref[both], 1e-6)
     print(
-        f"parity: hit-agree {hit_match.mean()*100:.3f}%  "
-        f"idx-agree {(i_ref[both]==i_w[both]).mean()*100:.3f}%  "
+        f"parity: hit-agree {((i_ref >= 0) == (i_s >= 0)).mean()*100:.3f}%  "
+        f"idx-agree {(i_ref[both] == i_s[both]).mean()*100:.3f}%  "
         f"max rel t err {rel.max():.2e}"
     )
 
-    # --- perf on TPU ---
-    if jax.default_backend() != "tpu":
-        print("no TPU; skipping perf")
+    if jax.devices()[0].platform != "gpu":
+        print("no GPU; skipping perf")
         return
-
-    from theia_tpu.accel import _nearest_triangle
-    from theia_tpu.scene import ScenePack
-
-    n_big = 256 * 1024 * 3  # 3 rays/lane equivalent
-    o = rng.uniform(-2, 5, (n_big, 3)).astype(np.float32)
-    d = rng.normal(size=(n_big, 3)).astype(np.float32)
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    oj = jnp.asarray(o)
-    dj = jnp.asarray(d)
-
-    from theia_tpu.ops.intersect_mt_pallas import nearest_triangle_mt, pack_mt
-
-    mtp = pack_mt(v0, e1, e2)
-
-    @jax.jit
-    def woop_run(o, d):
-        t, i = nearest_triangle_woop(pack, o, d, tmax)
-        return t.sum() + i.sum()
-
-    @jax.jit
-    def mt_run(o, d):
-        t, i = nearest_triangle_mt(mtp, o, d, tmax)
-        return jnp.where(jnp.isfinite(t), t, 0.0).sum() + i.sum()
-
-    class P:  # minimal stand-in for ScenePack in _nearest_triangle
-        w_v0 = jnp.asarray(v0, jnp.float32)
-        w_e1 = jnp.asarray(e1, jnp.float32)
-        w_e2 = jnp.asarray(e2, jnp.float32)
-
-    @jax.jit
-    def brute_run(o, d):
-        t, i = _nearest_triangle(P, o, d, tmax, 256)
-        return jnp.where(jnp.isfinite(t), t, 0.0).sum() + i.sum()
-
-    for name, fn in (
-        ("woop-pallas", woop_run),
-        ("mt-pallas", mt_run),
-        ("brute-jnp", brute_run),
-    ):
-        val = float(np.asarray(fn(oj, dj)))
-        ts = []
-        for rep in range(3):
-            o2 = oj + rep * 1e-4
-            jax.block_until_ready(o2)
-            t0 = time.perf_counter()
-            val = float(np.asarray(fn(o2, dj)))
-            ts.append(time.perf_counter() - t0)
-        dt = min(ts)
-        rate = n_big * n_tri / dt
-        print(
-            f"{name:12s}: {dt*1e3:8.1f} ms  {rate/1e9:8.2f} Gtest/s  val={val:.4e}"
-        )
+    n_big = 524_288
+    oj, dj = (jnp.asarray(x) for x in rays(rng, n_big))
+    run = jax.jit(lambda o, d: jnp.where(jnp.isfinite(s := scan(o, d)[0]), s, 0.0).sum())
+    jax.block_until_ready(run(oj, dj))
+    ts = []
+    for rep in range(5):
+        o2 = oj + rep * 1e-4
+        jax.block_until_ready(o2)
+        t0 = time.perf_counter()
+        jax.block_until_ready(run(o2, dj))
+        ts.append(time.perf_counter() - t0)
+    dt = float(np.median(ts))
+    print(f"brute scan: {dt*1e3:.3f} ms  {n_big * n_tri / dt:.6g} tests/s ({jax.devices()[0].device_kind})")
 
 
 if __name__ == "__main__":

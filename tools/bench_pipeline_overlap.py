@@ -7,14 +7,14 @@ the host processes batch k-1. Our analogue leans on JAX's asynchronous
 dispatch: `Pipeline.run_async` issues a batch without synchronizing and
 the host only blocks when converting results to numpy.
 
-This tool quantifies the overlap on the real chip: N batches of the
+This tool quantifies the overlap on the device: N batches of the
 bench tracer, each followed by `host_ms` of host-side processing
 (busy-spin on a checksum to emulate histogram post-processing /
 convergence accounting), run (a) sequentially (sync after every batch)
 and (b) through PipelineScheduler with lookahead. Perfect overlap makes
 wall time max(device_total, host_total); no overlap makes it the sum.
 
-Run on the bench chip:
+Run on the GPU:
     python tools/bench_pipeline_overlap.py [batches] [host_ms]
 """
 
@@ -44,7 +44,7 @@ def main() -> None:
     import jax
 
     import __graft_entry__ as g
-    from theia_tpu.pipeline import Pipeline, PipelineScheduler
+    from theia_jax.pipeline import Pipeline, PipelineScheduler
 
     tracer = g._build_scene_tracer(batch, max_path=10, accel="brute")
     pipeline = Pipeline(tracer)

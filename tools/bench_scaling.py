@@ -1,8 +1,7 @@
 """Weak-scaling measurement of the sharded tracer on a virtual CPU mesh.
 
-BASELINE.md asks for >= 85% scaling efficiency at 2 hosts. Real multi-chip
-hardware is unavailable in this sandbox, so this harness measures what IS
-measurable here and documents the rest:
+It checks the structure of the sharded program without GPUs
+(`python chip_smoke.py --four` runs the sharded path on four cards):
 
 * weak scaling on an N-virtual-device CPU mesh
   (xla_force_host_platform_device_count): per-device batch held fixed,
@@ -14,9 +13,9 @@ measurable here and documents the rest:
   wall-clock SLOWS with N; the meaningful check is that the sharded
   program adds no serialization: time(N devices, N*B photons) /
   time(1 device, N*B photons) ~= 1. That ratio (reported as
-  ``overhead``) bounds the multi-chip efficiency loss from program
-  structure; on real chips the remaining loss is the psum latency,
-  which at ~400 B over ICI is microseconds against a >100 ms batch.
+  ``overhead``) bounds the multi-device efficiency loss from program
+  structure; on real cards the remaining loss is the psum latency of a
+  ~400 B payload.
 
 Usage: python tools/bench_scaling.py [per_device_batch]
 """
@@ -41,7 +40,7 @@ jax.config.update("jax_platforms", "cpu")
 import numpy as np
 
 import __graft_entry__ as g
-from theia_tpu.parallel.dataparallel import (
+from theia_jax.parallel.dataparallel import (
     make_photon_mesh,
     shard_trace,
     sharded_streams,

@@ -18,13 +18,14 @@ import jax.numpy as jnp
 import numpy as np
 
 import __graft_entry__ as g
+from theia_jax import compile_cache
 
 BATCH = 256 * 1024
 
 
 def time_tracer(tracer, label):
     fn, (p, counter, streams) = tracer.trace_fn()
-    step = jax.jit(fn)
+    step = compile_cache.jit(fn)
     out = step(p, counter, streams)
     jax.block_until_ready(out)
     ts = []

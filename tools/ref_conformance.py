@@ -46,10 +46,9 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(REPO))
 
-ASSETS = "/root/reference/assets"
 
 # goldens are generated and checked on the virtual CPU mesh so they are
-# platform-stable; bench.py owns the real-TPU path
+# platform-stable; chip_smoke.py compares a GPU run against them
 if __name__ == "__main__":
     os.environ.setdefault("JAX_PLATFORMS", "cpu")
     flags = os.environ.get("XLA_FLAGS", "")
@@ -66,14 +65,15 @@ if __name__ == "__main__":
 import jax.numpy as jnp
 import numpy as np
 
-import theia_tpu.units as u
-from theia_tpu.light import (
+import theia_jax.units as u
+from theia_jax import compile_cache
+from theia_jax.light import (
     ConeLightSource,
     ConstWavelengthSource,
     SphericalLightSource,
     UniformWavelengthSource,
 )
-from theia_tpu.material import (
+from theia_jax.material import (
     BK7Model,
     DispersionFreeMedium,
     HenyeyGreensteinPhaseFunction,
@@ -82,12 +82,13 @@ from theia_tpu.material import (
     MediumModel,
     WaterBaseModel,
 )
-from theia_tpu.random import PhiloxRNG, rng_buffer
-from theia_tpu.response import HistogramHitResponse
-from theia_tpu.scene import MeshStore, Scene, Transform
-from theia_tpu.target import SphereTarget, SphereTargetGuide
-from theia_tpu.trace.scene import SceneForwardTracer
-from theia_tpu.trace.volume import VolumeForwardTracer
+from theia_jax.random import PhiloxRNG, rng_buffer
+from theia_jax.response import HistogramHitResponse
+from theia_jax.mesh import icosphere, lobed_sphere
+from theia_jax.scene import MeshStore, Scene, Transform
+from theia_jax.target import SphereTarget, SphereTargetGuide
+from theia_jax.trace.scene import SceneForwardTracer
+from theia_jax.trace.volume import VolumeForwardTracer
 
 N_RUNS = 2  # per-batch comparison needs >= 2 to exercise the offset stride
 RNG_PROBE_STREAMS = 16
@@ -175,7 +176,7 @@ def _three_sphere_scene(accel: str, polarized: bool):
             Material("det_water", None, water, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     light_pos, det_pos = (3.0, 0.0, 0.0), (0.0, 3.0, 0.0)
     instances = [
         meshes.createInstance(
@@ -252,8 +253,8 @@ def c4_multisource_polarized(batch: int):
     return flash, {"extra_tracers": [beam]}
 
 
-def c5_suzanne_polarized_grad(batch: int):
-    """BASELINE config 5: suzanne.stl polarized transient + medium-parameter
+def c5_lobed_polarized_grad(batch: int):
+    """BASELINE config 5 (lobed sphere in place of suzanne.stl): polarized transient + medium-parameter
     gradients (mu_a, mu_s, g via the phase tables, IOR via Fresnel at the
     glass shell), sharded over the full device mesh."""
     water = _Water().createMedium(num_lambda=64, num_theta=256)
@@ -266,7 +267,7 @@ def c5_suzanne_polarized_grad(batch: int):
     )
     src_pos = (0.0, -2.0, 0.0)
     meshes = MeshStore(
-        {"suzanne": f"{ASSETS}/suzanne.stl", "sphere": f"{ASSETS}/sphere.stl"}
+        {"lobed": lobed_sphere(), "sphere": icosphere()}
     )
     scene = Scene(
         [
@@ -277,7 +278,7 @@ def c5_suzanne_polarized_grad(batch: int):
                 Transform.TRS(scale=0.8, translate=src_pos),
             ),
             meshes.createInstance(
-                "suzanne", "det_water",
+                "lobed", "det_water",
                 Transform.TRS(scale=1.0, translate=(0.0, 4.0, 0.0)),
                 detectorId=1,
             ),
@@ -325,20 +326,20 @@ def c5_suzanne_polarized_grad(batch: int):
 
 
 def c6_detector_array(batch: int):
-    """BASELINE config 6 (round 5): the domain's flagship workload — a
+    """BASELINE config 6: the domain's flagship workload — a
     3x3x3 SceneTemplate-stamped array of BK7 detector modules in water
     (reference analogue: src/theia/scene.py:713-935 SceneTemplate for
     telescope module arrays), central light source, target-guide MIS
     toward the center module, every module responding (targetId=-1,
     detector ids 0..26 in stamping order)."""
-    from theia_tpu.render import SceneTemplate
+    from theia_jax.render import SceneTemplate
 
     water = _Water().createMedium(num_lambda=64, num_theta=64)
     glass = BK7Model().createMedium(num_lambda=64, num_theta=4)
     mats = MaterialStore.pack(
         [Material("det_water", glass, water, flags="DB")]
     )
-    meshes = MeshStore({"sphere": f"{ASSETS}/sphere.stl"})
+    meshes = MeshStore({"sphere": icosphere()})
     proto = meshes.createInstance(
         "sphere", "det_water", Transform.TRS(scale=0.4), detectorId=0
     )
@@ -384,7 +385,7 @@ CONFIGS = {
     "c2_volume_hg": c2_volume_hg,
     "c3_scene_fresnel": c3_scene_fresnel,
     "c4_multisource_polarized": c4_multisource_polarized,
-    "c5_suzanne_polarized_grad": c5_suzanne_polarized_grad,
+    "c5_lobed_polarized_grad": c5_lobed_polarized_grad,
     "c6_detector_array": c6_detector_array,
 }
 
@@ -395,7 +396,7 @@ DEFAULT_BATCH = {
     "c2_volume_hg": 16 * 1024,
     "c3_scene_fresnel": 4 * 1024,
     "c4_multisource_polarized": 2 * 1024,
-    "c5_suzanne_polarized_grad": 2 * 1024,
+    "c5_lobed_polarized_grad": 2 * 1024,
     "c6_detector_array": 2 * 1024,
 }
 
@@ -449,7 +450,7 @@ def _medium_grads(tracer, medium_name, tables, *, sharded: bool = False):
     if sharded:
         from jax.sharding import PartitionSpec as P
 
-        from theia_tpu.parallel.dataparallel import (
+        from theia_jax.parallel.dataparallel import (
             BATCH_AXIS,
             make_photon_mesh,
             sharded_streams,
@@ -464,7 +465,7 @@ def _medium_grads(tracer, medium_name, tables, *, sharded: bool = False):
                 g = jax.grad(_loss)(tbl, p, counter, streams)
                 return jax.lax.psum(g, BATCH_AXIS)
 
-            g = jax.jit(
+            g = compile_cache.jit(
                 jax.shard_map(
                     inner,
                     mesh=mesh,
@@ -478,7 +479,7 @@ def _medium_grads(tracer, medium_name, tables, *, sharded: bool = False):
         streams = tracer.streams()
         for t in tables:
             loss = _medium_params_loss(tracer, medium_name, t)
-            g = jax.jit(jax.grad(loss))(get(t), p, counter, streams)
+            g = compile_cache.jit(jax.grad(loss))(get(t), p, counter, streams)
             out[f"grad_{t}"] = np.asarray(g, np.float64)
     return out
 
@@ -490,7 +491,7 @@ def _probe_rng_dims(tracer) -> np.ndarray:
     try:
         p = tracer.params()
         streams = jnp.arange(RNG_DIM_PROBE, dtype=jnp.uint32)
-        out = jax.jit(tracer._trace_batch)(p, tracer.rng.counter_words, streams)
+        out = compile_cache.jit(tracer._trace_batch)(p, tracer.rng.counter_words, streams)
         return np.asarray(out[-1], np.uint32)
     finally:
         tracer._debug_rng = False

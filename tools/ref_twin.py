@@ -3,7 +3,7 @@
 This script is the other half of tools/ref_conformance.py: it rebuilds
 the five BASELINE.md staged configs with the *reference* implementation
 (tkerscher/theia + hephaistos, which need a Vulkan-capable GPU and are
-not installable in the TPU sandbox), runs them on identical Philox
+not installable without a Vulkan driver), runs them on identical Philox
 streams, and compares against this repo's vendored goldens.
 
 Usage (on the Vulkan machine):
@@ -44,6 +44,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 
 import numpy as np
@@ -72,7 +73,28 @@ from theia.scene import MeshStore, Scene, Transform
 from theia.target import SphereTarget, SphereTargetGuide
 from theia.trace import SceneForwardTracer, VolumeForwardTracer
 
-ASSETS = Path(__file__).resolve().parents[1] / "assets"  # or reference assets/
+REPO = Path(__file__).resolve().parents[1]
+sys.path.insert(0, str(REPO))
+
+from theia_jax.mesh import icosphere, lobed_sphere  # noqa: E402
+
+_MESHES = {"sphere": icosphere, "lobed": lobed_sphere}
+
+
+def _mesh_file(name: str) -> str:
+    """Write one of this repo's procedural meshes (the geometry of
+    tools/ref_conformance.py) as binary STL for the reference's loader."""
+    path = REPO / "build" / "ref_twin_assets" / f"{name}.stl"
+    if not path.exists():
+        mesh = _MESHES[name]()
+        tri = mesh.vertices[:, :3][mesh.indices].astype(np.float32)
+        rec = np.zeros(len(tri), [("n", "<f4", 3), ("v", "<f4", (3, 3)), ("a", "<u2")])
+        rec["v"] = tri
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_bytes(
+            bytes(80) + np.uint32(len(tri)).tobytes() + rec.tobytes()
+        )
+    return str(path)
 N_RUNS = 2
 RNG_PROBE_STREAMS = 16
 
@@ -143,7 +165,7 @@ def _three_sphere_scene():
             Material("det_water", None, water, flags="DB"),
         ]
     )
-    meshes = MeshStore({"sphere": str(ASSETS / "sphere.stl")})
+    meshes = MeshStore({"sphere": _mesh_file("sphere")})
     light_pos, det_pos = (3.0, 0.0, 0.0), (0.0, 3.0, 0.0)
     instances = [
         meshes.createInstance(
@@ -220,7 +242,7 @@ def c4_multisource_polarized(batch: int):
     ]
 
 
-def c5_suzanne_polarized_grad(batch: int):
+def c5_lobed_polarized_grad(batch: int):
     water = _Water().createMedium(400.0, 800.0, num_lambda=64, num_theta=256)
     glass = BK7Model().createMedium(400.0, 800.0, num_lambda=64, num_theta=4)
     store = MaterialStore(
@@ -231,8 +253,8 @@ def c5_suzanne_polarized_grad(batch: int):
     )
     meshes = MeshStore(
         {
-            "suzanne": str(ASSETS / "suzanne.stl"),
-            "sphere": str(ASSETS / "sphere.stl"),
+            "lobed": _mesh_file("lobed"),
+            "sphere": _mesh_file("sphere"),
         }
     )
     src_pos = (0.0, -2.0, 0.0)
@@ -242,7 +264,7 @@ def c5_suzanne_polarized_grad(batch: int):
                 "sphere", "glass_water", Transform.TRS(scale=0.8, translate=src_pos)
             ),
             meshes.createInstance(
-                "suzanne", "det_water",
+                "lobed", "det_water",
                 Transform.TRS(scale=1.0, translate=(0.0, 4.0, 0.0)),
                 detectorId=1,
             ),
@@ -269,7 +291,7 @@ def c5_suzanne_polarized_grad(batch: int):
 
 def c6_detector_array(batch: int):
     """3x3x3 array of BK7 detector spheres in water, central source,
-    guide MIS toward the center module. The TPU side stamps this from an
+    guide MIS toward the center module. This repo stamps it from an
     in-memory SceneTemplate assigning detector ids 0..26 in (i, j, k)
     stamping order; the reference's SceneTemplate is file-based
     (src/theia/scene.py:713-935), so the twin builds the identical scene
@@ -277,7 +299,7 @@ def c6_detector_array(batch: int):
     water = _Water().createMedium(400.0, 800.0, num_lambda=64, num_theta=64)
     glass = BK7Model().createMedium(400.0, 800.0, num_lambda=64, num_theta=4)
     store = MaterialStore([Material("det_water", glass, water, flags="DB")])
-    meshes = MeshStore({"sphere": str(ASSETS / "sphere.stl")})
+    meshes = MeshStore({"sphere": _mesh_file("sphere")})
     spacing, n_side = 2.0, 3
     instances = []
     det = 0
@@ -329,7 +351,7 @@ CONFIGS = {
     "c2_volume_hg": c2_volume_hg,
     "c3_scene_fresnel": c3_scene_fresnel,
     "c4_multisource_polarized": c4_multisource_polarized,
-    "c5_suzanne_polarized_grad": c5_suzanne_polarized_grad,
+    "c5_lobed_polarized_grad": c5_lobed_polarized_grad,
     "c6_detector_array": c6_detector_array,
 }
 
